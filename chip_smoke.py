@@ -3,43 +3,63 @@
 
     python3 chip_smoke.py            # from the repository root, needs one GPU
 
-Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``,
-then runs four phases and prints one JSON object per line:
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc``
+(one process per source, all at once), then runs these phases and prints
+one JSON object per line:
 
 1. ``env``          — GPU name and power limit, torch / CUDA / nvcc versions,
                       build seconds.
-2. ``kernel_checks``— each kernel against its plain PyTorch version on the
-                      card at every shape bucket (masks equal or equal-cost,
-                      cuts to ``rtol=1e-5, atol=1e-5·C_local``), the fused
-                      kernel against the solve kernel fed with
-                      ``batch_weights``, and samples against the f64 oracle.
-3. ``solve_plane``  — ``solve_envs`` / ``mcop_batch`` at full size.
-4. ``broker``       — a two-tenant ``OffloadBroker`` tick loop (100 000
+2. ``kernel_checks``— the two MCOP solve kernels (B1, B2) against their plain
+                      PyTorch versions on the card at every shape bucket
+                      (masks equal or equal-cost, cuts to ``rtol=1e-5,
+                      atol=1e-5·C_local``), the fused kernel against the solve
+                      kernel fed with ``batch_weights``, and samples against
+                      the f64 oracle.
+3. ``model_kernel_checks`` — the flash-attention kernel (B4) and the Mamba2
+                      scan kernel (B5) against their plain versions at the
+                      hybrid model's prefill shapes and at GQA, odd-length
+                      and padded shapes (tolerances stated per shape).
+4. ``solve_plane``  — ``solve_envs`` / ``mcop_batch`` at full size.
+5. ``broker``       — a two-tenant ``OffloadBroker`` tick loop (100 000
                       batched sessions + 256 per-object sessions), one fused
                       ``tick_sessions``, and a replay of the same workload on
                       the f64 reference backend that every placement must
                       match.
+6. ``serve``        — zamba2-1.2b at full width in bf16 (random weights from
+                      seed 0): the placement report of ``launch/serve.py``,
+                      then 8 requests of 4608-8192 prompt tokens through the
+                      ``ServingEngine`` in two waves of 4, 16 new tokens each.
+7. ``serve_replay`` — the same engine at reduced width in f32 on the card and
+                      on the CPU (plain versions), prompts of 4100-4608 tokens:
+                      greedy tokens equal, prefill logits within tolerance.
 
-Phases 3 and 4 are the main path: the kernels' launch counters are zeroed
-before and read after, and a kernel that was not launched fails the run.
-Then a ``kernel_work`` line counts the work of the timed shapes (absorb steps
-and the on-chip row traffic they imply: computed from the inputs, not
-measured), a ``{"kernels": [...]}`` line gives, per kernel, its launches on
-the main path, its measured time, its plain version's measured time and its
-roofline bound at the solve-plane shape; the GPU's name and power limit; and
-last ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without a
-GPU nothing runs.
+Two main paths, each driven with every launch counter set to 0 just before
+it and read just after: phases 4-5 (the broker tick: B1, B2) and phase 6
+(serving: B4 19 times and B5 38 times per prefill).  A kernel of a path
+that was not launched there fails the run.  Then a ``kernel_work`` line
+counts the work of the MCOP timed shapes (computed from the inputs, not
+measured), a ``{"kernels": [...]}`` line gives, per kernel, its launches
+on its main path, its measured time, its plain version's measured time, the
+time of one PyTorch call computing the same function where there is one,
+and its roofline bound at the main path's shape; the GPU's name and power
+limit; and last ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero; without a GPU nothing runs.
 
 Switches for work on the kernels (environment variables, all off by default):
 ``SMOKE_PTXAS=1`` rebuilds with ``-Xptxas -v`` and prints registers and
-spills; ``SMOKE_ONLY_CHECKS=1`` stops after phase 2; ``SMOKE_CHECK_MIN_N=236``
+spills; ``SMOKE_ONLY_CHECKS=1`` stops after phase 3; ``SMOKE_CHECK_MIN_N=236``
 skips phase 2's shapes below that vertex count (what is left runs the
-kernels' scratch-matrix variant only); ``SMOKE_PROFILE=1`` wraps
-the timed broker ticks in ``torch.profiler`` and reports the GPU's busy share.
+kernels' scratch-matrix variant only; a value above 768 skips phase 2's
+shapes altogether); ``SMOKE_PROFILE=1`` wraps the timed broker ticks, and
+one more prefill and 8 decode steps of the served model, in
+``torch.profiler`` and reports the GPU's busy time (by kernel family for
+the model) and idle share.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -55,6 +75,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 RTOL = 1e-5          # cut tolerance: f32 sums taken in different orders
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense tensor cores
 SMEM_BYTES_PER_S = 132 * 128 * 1.755e9  # 132 SMs x 128 B/clk x boost clock
 
 DEVICE = "cuda"
@@ -74,6 +95,50 @@ PLANE = ((64, 4096, "weighted"), (256, 1024, "time"))   # (n, K, cost model)
 HETERO = (2048, 5, 200)            # graphs, smallest, largest
 BROKER = {"u": 100_000, "users_b": 256, "steps_b": 6, "n_b": 64, "replay_u": 2_000}
 LINE_SHAPE = (64, 4096)            # (n, K) of the per-kernel line
+
+# flash-attention checks: (B, H, Hkv, Sq, Sk, hd, causal, window, dtype,
+# layout).  The first is the hybrid model's prefill (zamba2-1.2b: 32 heads
+# of 64, a 4096-token window, 8192-token prompts, a wave of 4) and gives the
+# kernel's line; then GQA at hd 128, f32 over 4096-key rows, and odd
+# lengths with a window on full attention.  Layout "model": transpose(1, 2)
+# views of (B, S, H, hd) tensors, as chunked_attention hands them over;
+# "heads": contiguous (B, H, S, hd).
+FLASH_CHECKS = (
+    (4, 32, 32, 8192, 8192, 64, True, 4096, "bfloat16", "model"),
+    (2, 28, 4, 4096, 4096, 128, True, None, "bfloat16", "model"),
+    (1, 32, 32, 4500, 4500, 64, True, 4096, "float32", "heads"),
+    (3, 2, 2, 17, 63, 8, False, 16, "float32", "heads"),
+    (2, 4, 2, 1000, 1337, 64, False, 300, "float32", "model"),
+)
+# (atol, rtol) by dtype.  bf16: both sides round an f32 result to bf16, so
+# they may differ by one bf16 step of the output, at most 2^-7 |o|, plus
+# what f32 sums in another order leave before the rounding (under 1e-6 in
+# the f32 cases).  With unit-normal q, k, v and scale 1/sqrt(hd) a row of
+# the prefill shape spreads over ~1500 keys and |o| is ~0.02 on average:
+# there the bf16 tolerance is ~1.7e-4, under 1 % of a typical output (a
+# uniform error of 0.0156 fails wherever |o| < 2).  f32: sums in another
+# order.  Each check reports the mean |o| and the tolerance there.
+FLASH_TOL = {"bfloat16": (1e-5, 2.0**-7), "float32": (2e-5, 2e-5)}
+# Mamba2 scan checks: (B, S real, S padded, H, P, N, Q, layout).  The hybrid
+# model's prefill (64 heads, 64 x 64 state, chunk 256, a wave of 4 prompts
+# of 8192) gives the kernel's line; then a prompt padded to the chunk as
+# mamba2_forward pads it (dt = 0 on the padded steps), and the reduced
+# model's widths that phase serve_replay runs.  Layout "model": views of
+# step-major (B, S, H, P) / (B, S, H) / (B, S, N) tensors, as the bf16
+# model's cast to f32 gives them; "slices": x, Bm and Cm are slices of one
+# (B, S, H P + 2 N) tensor, as in the f32 model; "heads": contiguous.
+MAMBA_CHECKS = (
+    (4, 8192, 8192, 64, 64, 64, 256, "model"),
+    (2, 4100, 4352, 64, 64, 64, 256, "heads"),
+    (2, 4100, 4112, 8, 16, 16, 16, "slices"),
+)
+MAMBA_RTOL = 1e-4   # f32 sums in another order; atol = rtol x the output's max
+SERVE = {"arch": "zamba2-1.2b", "requests": 8, "max_batch": 4,
+         "prompt": (4608, 8192), "new_tokens": 16, "seed": 0}
+# logits: f32 sums in another order (kernels vs plain versions, cuBLAS vs the
+# CPU's matrix products) through two layers; atol = rtol x the logits' max
+REPLAY = {"requests": 4, "max_batch": 2, "prompt": (4100, 4608), "new_tokens": 8,
+          "seed": 1, "logits_rtol": 1e-4}
 
 
 def emit(obj: dict) -> None:
@@ -670,10 +735,6 @@ def measure_kernels(rng, n: int, k: int, kind: str, *, reps: int) -> dict:
             a[:k_plain] for a in to_host(fused())), want, *host),
     }
 
-    def bound(nbytes: float, flops: float):
-        by, op = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
-        return max(by, op), "bytes" if by >= op else "operations"
-
     # every absorb step scores n candidates (subtract, compare) and adds one
     # row (n adds); every phase prices a cut and merges (about 4n operations)
     solve_flops = steps * 3 * n + k * (n - 1) * 4 * n
@@ -688,8 +749,8 @@ def measure_kernels(rng, n: int, k: int, kind: str, *, reps: int) -> dict:
                     "row_traffic_bytes": steps * n * 4,
                     "row_traffic_ms_computed": steps * n * 4 / SMEM_BYTES_PER_S * 1e3}}
     for key, fn, plain_ms, (b_ms, b_by) in (
-        ("sw", sw, plain_sw_ms, bound(sw_bytes, solve_flops)),
-        ("fused", fused, plain_fused_ms, bound(fused_bytes, fused_flops)),
+        ("sw", sw, plain_sw_ms, bound(sw_bytes, solve_flops, FP32_FLOP_PER_S)),
+        ("fused", fused, plain_fused_ms, bound(fused_bytes, fused_flops, FP32_FLOP_PER_S)),
     ):
         out[key] = {"max_abs_err": err[key]["max_abs_err"],
                     "tie_masks": err[key]["tie_masks"],
@@ -724,6 +785,395 @@ def kernel_lines(rng, launches: dict) -> tuple[dict, dict]:
     ]}
 
 
+# ----------------------------------------------------------------------
+# Phase 3: the attention and Mamba2-scan kernels against their plain versions
+# ----------------------------------------------------------------------
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import flash_attention, mamba_scan, mcop_phase
+
+    for mod in (mcop_phase, flash_attention, mamba_scan):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import flash_attention, mamba_scan, mcop_phase
+
+    return {**mcop_phase.LAUNCHES, **flash_attention.LAUNCHES, **mamba_scan.LAUNCHES}
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave, per (batch, head)."""
+    q = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk, q + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, q - window + 1) if window is not None else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def bound(nbytes: float, flops: float, flop_rate: float):
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
+    return max(by, op), "bytes" if by >= op else "operations"
+
+
+def flash_inputs(gen, case):
+    """q, k, v (B, H, S, hd) of a FLASH_CHECKS case, in its layout."""
+    b, h, hkv, sq, sk, hd, _, _, dtype, layout = case
+
+    def draw(heads, s):
+        shape = (b, heads, s, hd) if layout == "heads" else (b, s, heads, hd)
+        t = torch.randn(shape, generator=gen, device=DEVICE).to(getattr(torch, dtype))
+        return t if layout == "heads" else t.transpose(1, 2)
+
+    return draw(h, sq), draw(hkv, sk), draw(hkv, sk)
+
+
+def check_flash(rng, case, *, measure: bool) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    b, h, hkv, sq, sk, hd, causal, window, dtype, layout = case
+    atol, rtol = FLASH_TOL[dtype]
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    q, k, v = flash_inputs(gen, case)
+    got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want, plain_ms = timed(lambda: flash_attention_plain(q, k, v, causal=causal, window=window))
+    want = want.float()
+    tol = atol + rtol * want.abs()
+    err = (got.float() - want).abs()
+    worst = float((err / tol).max())
+    if worst > 1.0:
+        raise AssertionError(f"flash {case}: kernel vs plain max error {float(err.max())}, "
+                             f"{worst} x the tolerance")
+    mean_abs = float(want.abs().mean())
+    entry = {"name": "flash_attention_kernel", "shape": [b, h, hkv, sq, sk, hd],
+             "causal": causal, "window": window, "dtype": dtype, "layout": layout,
+             "atol": atol, "rtol": rtol, "max_abs_err": float(err.max()),
+             "max_err_over_tol": worst, "mean_abs_out": mean_abs,
+             "tol_at_mean_abs_out": atol + rtol * mean_abs}
+    del err
+    if measure:
+        pairs = attention_pairs(sq, sk, causal, window)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, 4.0 * hd * pairs * b * h,
+                           BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S)
+        idx = torch.arange(sq, device=DEVICE)[:, None], torch.arange(sk, device=DEVICE)[None]
+        band = torch.ones((sq, sk), dtype=torch.bool, device=DEVICE)
+        if causal:
+            band &= idx[1] <= idx[0]
+        if window is not None:
+            band &= idx[1] > idx[0] - window
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def library():
+            return sdpa(q, k, v, attn_mask=band, enable_gqa=True)
+
+        lib = library().float()
+        # how the library's own arithmetic fares under the same tolerance
+        lib_err = float((lib - want).abs().max())
+        lib_outside = float(((lib - want).abs() > tol).float().mean())
+        del lib
+        entry.update({
+            "ms": cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=causal,
+                                                         window=window), reps=3),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(library, reps=3), "library_max_abs_err": lib_err,
+            "library_share_outside_tol": lib_outside, "pairs_per_head": pairs,
+        })
+    return entry
+
+
+def mamba_inputs(gen, case):
+    """(x, dt, ld, Bm, Cm, h0) of a MAMBA_CHECKS case, in its layout, as
+    kernels.ops.mamba_chunk_scan hands them to the kernel."""
+    b, s_real, s, h, p, n, q, layout = case
+    nc = s // q
+
+    def draw(shape, lo=None, hi=None):
+        if lo is None:
+            return torch.randn(shape, generator=gen, device=DEVICE)
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=DEVICE)
+
+    real = (torch.arange(s, device=DEVICE) < s_real).float()[None, :, None]
+    dt = draw((b, s, h), 0.05, 1.0) * real        # padded steps: dt = 0
+    ld = -draw((b, s, h), 0.01, 0.8) * real
+    if layout == "slices":
+        x, bm, cm = torch.split(draw((b, s, h * p + 2 * n)), [h * p, n, n], dim=-1)
+    else:
+        x, bm, cm = draw((b, s, h * p)), draw((b, s, n)), draw((b, s, n))
+    args = (x.reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4),
+            dt.reshape(b, nc, q, h).permute(0, 3, 1, 2),
+            ld.reshape(b, nc, q, h).permute(0, 3, 1, 2),
+            bm.reshape(b, nc, q, n), cm.reshape(b, nc, q, n), draw((b, h, p, n)))
+    return tuple(t.contiguous() for t in args) if layout == "heads" else args
+
+
+def check_mamba(rng, case, *, measure: bool) -> dict:
+    from repro_torch.kernels.mamba_scan import mamba_chunk_scan_kernel
+    from repro_torch.kernels.ref import mamba_chunk_scan_plain
+
+    b, s_real, s, h, p, n, q, layout = case
+    nc = s // q
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    args = mamba_inputs(gen, case)
+    x, dt, ld, bm, cm, h0 = args
+    got = mamba_chunk_scan_kernel(*args)
+    torch.cuda.synchronize()
+    want, plain_ms = timed(lambda: mamba_chunk_scan_plain(*args))
+    errs = []
+    for g_t, w_t in zip(got, want):
+        err = float((g_t - w_t).abs().max())
+        scale = max(1.0, float(w_t.abs().max()))
+        if err > MAMBA_RTOL * scale:
+            raise AssertionError(f"mamba {case}: kernel vs plain max error {err} at scale {scale}")
+        errs.append(err)
+    entry = {"name": "mamba_chunk_scan_kernel", "shape": [b, h, nc, q, p, n],
+             "real_steps": s_real, "layout": layout, "max_abs_err": max(errs),
+             "y_err": errs[0], "h_err": errs[1]}
+    if measure:
+        pairs = q * (q + 1) // 2
+        # C.B^T once per (batch, chunk), since Bm and Cm are shared by every
+        # head; per (batch, head, chunk) the triangular W.x product, the
+        # C h^T read-out and the state update
+        flops = 2.0 * b * nc * pairs * n + 2.0 * b * h * nc * (pairs * p + 2 * q * p * n)
+        nbytes = 4 * (2 * x.numel() + dt.numel() + ld.numel() + bm.numel() + cm.numel()
+                      + 2 * h0.numel())
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        entry.update({"ms": cuda_ms(lambda: mamba_chunk_scan_kernel(*args), reps=3),
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None})
+    return entry
+
+
+def phase_model_kernel_checks(rng) -> dict:
+    """B4 and B5 against their plain versions; the first shape of each is
+    the hybrid model's prefill and is also timed for the kernels line."""
+    flash = [check_flash(rng, c, measure=i == 0) for i, c in enumerate(FLASH_CHECKS)]
+    mamba = [check_mamba(rng, c, measure=i == 0) for i, c in enumerate(MAMBA_CHECKS)]
+    return {"phase": "model_kernel_checks", "entries": flash + mamba}
+
+
+# ----------------------------------------------------------------------
+# Phases 6 and 7: serving the hybrid model
+# ----------------------------------------------------------------------
+
+
+class StepWatch:
+    """The model as the serving engine sees it; every step's logits must be
+    finite, and each prefill's are kept on the host."""
+
+    def __init__(self, model):
+        self.model = model
+        self.prefill_logits = []
+
+    def init_cache(self, batch_size, max_len):
+        return self.model.init_cache(batch_size, max_len)
+
+    def prefill(self, params, batch, cache):
+        logits, cache = self.model.prefill(params, batch, cache)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("prefill logits are not finite")
+        self.prefill_logits.append(logits.float().cpu())
+        return logits, cache
+
+    def decode_step(self, params, tokens, cache):
+        logits, cache = self.model.decode_step(params, tokens, cache)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("decode logits are not finite")
+        return logits, cache
+
+
+def submit_requests(engine, spec: dict, vocab: int) -> None:
+    prng = np.random.default_rng(spec["seed"])
+    lo, hi = spec["prompt"]
+    for _ in range(spec["requests"]):
+        plen = int(prng.integers(lo, hi + 1))
+        engine.submit(prng.integers(1, vocab, size=plen), max_new_tokens=spec["new_tokens"])
+
+
+def drive_engine(engine, sync) -> list[dict]:
+    """Run the engine to completion one step at a time; per wave, the
+    prefill's seconds and tokens and the decode steps' seconds and tokens."""
+    waves = []
+    while engine.active or engine.queue:
+        prefill = not engine.active
+        if prefill:
+            n = min(len(engine.queue), engine.cfg.max_batch)
+            prompts = [len(r.prompt) for r in list(engine.queue)[:n]]
+            waves.append({"requests": n, "prompt_tokens": sum(prompts),
+                          "padded_tokens": engine.cfg.max_batch * max(prompts),
+                          "decode_steps": 0, "decode_tokens": 0, "decode_seconds": 0.0})
+        active = len(engine.active)
+        t0 = time.perf_counter()
+        engine.step()
+        sync()
+        dt = time.perf_counter() - t0
+        wave = waves[-1]
+        if prefill:
+            wave["prefill_seconds"] = dt
+        else:
+            wave["decode_steps"] += 1
+            wave["decode_tokens"] += active
+            wave["decode_seconds"] += dt
+    return waves
+
+
+def phase_serve() -> dict:
+    """zamba2-1.2b at full width through the KV-cache engine (the main
+    path of this slice): the launch counters are read around it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.placement import TPUV5E_TIER, plan_placement
+    from repro_torch.models.transformer import build_model
+    from repro_torch.profilers.program import stage_specs
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = get_config(SERVE["arch"])
+    mb, (lo, hi), new = SERVE["max_batch"], SERVE["prompt"], SERVE["new_tokens"]
+    # the placement report of launch/serve.py
+    plan = plan_placement(
+        stage_specs(cfg, ShapeConfig("cli", "decode", 4096, mb), group=max(cfg.n_layers // 8, 1)),
+        dataclasses.replace(TPUV5E_TIER, name="decode-pool", chips=64),
+        dataclasses.replace(TPUV5E_TIER, name="prefill-pool", chips=192),
+    )
+    report = (f"[serve] MCOP placement: cut={plan.mcop_cost:.3e}s "
+              f"split={plan.contiguous_boundary}/{plan.stage_tier.shape[0]} "
+              f"cut_bytes={plan.cut_bytes:.3e}")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEVICE)
+    params = model.init(SERVE["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    watch = StepWatch(model)
+    engine = ServingEngine(watch, params, ServingConfig(
+        max_batch=mb, max_prompt_len=hi, max_len=hi + new + 1), rng_seed=SERVE["seed"])
+    submit_requests(engine, SERVE, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()  # ---- this slice's main path starts here ----
+    waves = drive_engine(engine, torch.cuda.synchronize)
+    launches = all_launches()  # ---- and ends here ----
+    prefills = len(waves)
+    groups = cfg.n_layers // cfg.shared_attn_every
+    want = {"flash_attention_kernel": groups * prefills,
+            "mamba_chunk_scan_kernel": cfg.n_layers * prefills}
+    for name, count in want.items():
+        if launches[name] != count:
+            raise AssertionError(f"serve: {name} launched {launches[name]} times, "
+                                 f"expected {count} ({prefills} prefills)")
+    done = engine.finished
+    if len(done) != SERVE["requests"] or any(len(s.generated) != new for s in done.values()):
+        raise AssertionError("serve: not every request got its tokens")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pre_s = sum(w["prefill_seconds"] for w in waves)
+    dec_s = sum(w["decode_seconds"] for w in waves)
+    profiles = None
+    if os.environ.get("SMOKE_PROFILE"):
+        profiles = profile_serve_steps(model, params, waves[0]["padded_tokens"] // mb,
+                                       cfg.vocab_size)
+    return {
+        "phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
+        "params": sum(p_.numel() for p_ in params.parameters()),
+        "placement_report": report, "init_seconds": init_s, "waves": waves,
+        "prefill_tokens_per_s": sum(w["prompt_tokens"] for w in waves) / pre_s,
+        "prefill_padded_tokens_per_s": sum(w["padded_tokens"] for w in waves) / pre_s,
+        "decode_tokens_per_s": sum(w["decode_tokens"] for w in waves) / dec_s,
+        "peak_memory_gb": peak_gb,
+        "launches": {k: launches[k] for k in want},
+        "launches_per_prefill": {k: launches[k] / prefills for k in want},
+        "main_path_launches": launches,
+        "profile": profiles,
+    }
+
+
+def kernel_time_by_group(prof) -> dict:
+    """Device milliseconds of a profiler window, by kernel family."""
+    groups = {"flash_attention_kernel": 0.0, "mamba_scan_kernel": 0.0,
+              "matrix products": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        ms = (getattr(ev, "self_device_time_total", None)
+              or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        if ms <= 0:
+            continue
+        name = ev.key
+        if "flash_attention_kernel" in name:
+            groups["flash_attention_kernel"] += ms
+        elif "mamba_scan_kernel" in name:
+            groups["mamba_scan_kernel"] += ms
+        elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet", "sm90_xmma")):
+            groups["matrix products"] += ms
+        else:
+            groups["other"] += ms
+    return groups
+
+
+def profile_serve_steps(model, params, plen: int, vocab: int) -> dict:
+    """One prefill of a full wave (4 prompts of ``plen`` tokens) and 8
+    decode steps after it, each under ``torch.profiler``: wall seconds, the
+    card's busy milliseconds by kernel family, and its idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    mb = SERVE["max_batch"]
+    toks = torch.randint(1, vocab, (mb, plen), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE).manual_seed(5))
+    cache = model.init_cache(mb, plen + SERVE["new_tokens"] + 1)
+    out = {}
+    for name, steps in (("prefill", 1), ("decode", 8)):
+        torch.cuda.synchronize()
+        # device activity only: host-side tracing would stretch the wall time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                if name == "prefill":
+                    logits, cache = model.prefill(params, {"tokens": toks}, cache)
+                else:
+                    logits, cache = model.decode_step(
+                        params, logits.argmax(-1, keepdim=True), cache)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        groups = kernel_time_by_group(prof)
+        busy = sum(groups.values())
+        out[name] = {"steps": steps, "wall_seconds": wall, "device_busy_ms": groups,
+                     "device_busy_ms_total": busy,
+                     "device_idle_share": 1.0 - busy / 1e3 / wall}
+    return out
+
+
+def phase_serve_replay() -> dict:
+    """The engine at reduced width in f32 on the card (kernels) and on the
+    CPU (plain versions), same parameters, same requests."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = reduce_config(get_config(SERVE["arch"]), dtype="float32")
+    _, hi = REPLAY["prompt"]
+    params_cpu = Model(cfg, device="cpu").init(REPLAY["seed"])
+    params_dev = copy.deepcopy(params_cpu).to(DEVICE)
+    runs = {}
+    for dev, params in ((DEVICE, params_dev), ("cpu", params_cpu)):
+        watch = StepWatch(Model(cfg, device=dev))
+        engine = ServingEngine(watch, params, ServingConfig(
+            max_batch=REPLAY["max_batch"], max_prompt_len=hi,
+            max_len=hi + REPLAY["new_tokens"] + 1), rng_seed=REPLAY["seed"])
+        submit_requests(engine, REPLAY, cfg.vocab_size)
+        t0 = time.perf_counter()
+        out = engine.run_to_completion()
+        runs[dev] = (out, watch.prefill_logits, time.perf_counter() - t0)
+    (got, got_logits, dev_s), (want, want_logits, cpu_s) = runs[DEVICE], runs["cpu"]
+    if got != want:
+        raise AssertionError(f"serve_replay: greedy tokens differ: {got} vs {want}")
+    errs = []
+    for g_l, w_l in zip(got_logits, want_logits):
+        err = float((g_l - w_l).abs().max())
+        if err > REPLAY["logits_rtol"] * max(1.0, float(w_l.abs().max())):
+            raise AssertionError(f"serve_replay: prefill logits differ by {err}")
+        errs.append(err)
+    return {"phase": "serve_replay", "requests": len(want), "waves": len(want_logits),
+            "tokens_checked": sum(len(v) for v in want.values()),
+            "logits_max_abs_err": max(errs), "device_seconds": dev_s, "cpu_seconds": cpu_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -734,6 +1184,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     built = build.build_all(verbose_ptxas=bool(os.environ.get("SMOKE_PTXAS")))
     if os.environ.get("SMOKE_PTXAS"):
@@ -752,10 +1203,14 @@ def main() -> int:
     checks = phase_kernel_checks(rng)
     checks["seconds"] = time.perf_counter() - t0
     emit(checks)
+    t0 = time.perf_counter()
+    model_checks = phase_model_kernel_checks(rng)
+    model_checks["seconds"] = time.perf_counter() - t0
+    emit(model_checks)
     if os.environ.get("SMOKE_ONLY_CHECKS"):
         return 0
 
-    K.reset_launches()  # ---- the main path starts here ----
+    reset_all_launches()  # ---- the broker path starts here ----
     t0 = time.perf_counter()
     plane = phase_solve_plane(rng)
     plane["seconds"] = time.perf_counter() - t0
@@ -768,9 +1223,33 @@ def main() -> int:
     emit(broker)
     for name, count in launches.items():
         if count <= 0:
-            raise AssertionError(f"main path never launched {name}")
+            raise AssertionError(f"broker path never launched {name}")
+
+    t0 = time.perf_counter()
+    serve = phase_serve()  # resets and reads the counters around its own path
+    serve["seconds"] = time.perf_counter() - t0
+    emit(serve)
+    t0 = time.perf_counter()
+    replay = phase_serve_replay()
+    replay["seconds"] = time.perf_counter() - t0
+    emit(replay)
 
     work, kernels = kernel_lines(rng, launches)
+    for name, path, line in (
+        ("flash_attention_kernel", "flash_attention", 152),
+        ("mamba_chunk_scan_kernel", "mamba_scan", 132),
+    ):
+        timed_entry = next(e for e in model_checks["entries"]
+                           if e["name"] == name and "ms" in e)
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{path}.cu",
+            "replaces": f"src/repro/kernels/{path}.py:{line}",
+            "launches": serve["main_path_launches"][name],
+            **{k: timed_entry[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "shape")},
+        })
     emit(work)
     emit(kernels)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -8,6 +8,11 @@ return this package's objects.  A
 function of its own: the JSON snapshot either package writes
 (``cache.snapshot()`` / ``cache.save(path)``) loads in the other
 (:func:`placement_cache_from_snapshot` is a one-line convenience).
+
+Model parameters cross as the JAX parameter tree with its leaves as numpy
+arrays (``jax.tree_util.tree_map(np.asarray, params)``):
+:func:`tree_to_state_dict` turns one module's tree into its
+``state_dict``, :func:`model_params_from_jax` a whole model's.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.cost_models import AppProfile, EnvArrays
 from repro_torch.core.graph import WCG, WCGBatch
@@ -28,6 +34,8 @@ __all__ = [
     "env_arrays_from_columns",
     "session_batch_from_state",
     "placement_cache_from_snapshot",
+    "tree_to_state_dict",
+    "model_params_from_jax",
 ]
 
 ENV_COLUMNS = EnvArrays._fields
@@ -116,3 +124,54 @@ def placement_cache_from_snapshot(
     return PlacementCache.from_snapshot(
         snapshot, fingerprint=fingerprint, quantizer=quantizer, capacity=capacity
     )
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype (a copy: arrays taken from
+    JAX are read-only).  bfloat16 leaves arrive as ``ml_dtypes.bfloat16``
+    arrays, which ``torch.from_numpy`` rejects: they go through float32
+    (exact for bfloat16)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def tree_to_state_dict(tree: Mapping, device="cpu", prefix: str = "") -> dict:
+    """A nested dict of arrays → ``{"a.b.c": tensor}``: the ``state_dict``
+    of the port's module whose submodules and parameters bear the tree's
+    names (``{"in_proj": {"w": …}}`` → ``"in_proj.w"``)."""
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(tree_to_state_dict(val, device, name + "."))
+        else:
+            out[name] = _tensor(val, device)
+    return out
+
+
+def model_params_from_jax(params_np: Mapping, cfg, device="cpu") -> dict:
+    """The ``state_dict`` of the port's model holding the JAX package's
+    parameters ``params_np`` (its ``Model.init`` tree, leaves as numpy).
+
+    Hybrid family only: the JAX tree stacks the Mamba2 layers as
+    ``(groups, every, …)`` leaves, which become ``mamba.{g}.{i}.…``, and
+    the per-invocation norm scales ``shared_ln.scale`` (groups, d) become
+    the ``shared_ln`` parameter."""
+    if cfg.family != "hybrid":
+        raise NotImplementedError(
+            f"parameter conversion for family {cfg.family!r} is not ported yet")
+    sd = {}
+    for key, val in params_np.items():
+        if key == "mamba":
+            stacked = tree_to_state_dict(val, "cpu")
+            for name, t in stacked.items():
+                for g in range(t.shape[0]):
+                    for i in range(t.shape[1]):
+                        sd[f"mamba.{g}.{i}.{name}"] = t[g, i].clone().to(device)
+        elif key in ("shared_ln", "shared_ln2"):
+            sd[key] = _tensor(val["scale"], device)
+        else:
+            sd.update(tree_to_state_dict(val, device, key + "."))
+    return sd

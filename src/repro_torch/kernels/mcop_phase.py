@@ -285,7 +285,11 @@ def _library(name: str):
     return lib  # restype stays ctypes' default c_int: the CUDA error code
 
 
-def _require(t: torch.Tensor, name: str, shape: tuple, dtype, device) -> None:
+def _require(t: torch.Tensor, name: str, shape: tuple, dtype, device, *,
+             layout: str = "contiguous") -> None:
+    """Type, shape, dtype and device of a kernel argument, and its layout:
+    ``"contiguous"``, ``"rows"`` (the last dim contiguous; the kernel takes
+    the other strides) or ``"any"`` (the kernel takes every stride)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if tuple(t.shape) != shape:
@@ -294,8 +298,10 @@ def _require(t: torch.Tensor, name: str, shape: tuple, dtype, device) -> None:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if not t.is_contiguous():
+    if layout == "contiguous" and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if layout == "rows" and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name} must have a contiguous last dim")
 
 
 def _plan(plan_fn, n: int, batch: int, device) -> tuple[int, int, int, int, torch.Tensor]:

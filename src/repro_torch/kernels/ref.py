@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of the attention and Mamba2-scan kernels.
+
+Each computes, as ordinary tensor code on whatever device its inputs lie
+on, the same function as its kernel (``csrc/flash_attention.cu``,
+``csrc/mamba_scan.cu``):
+
+* :func:`flash_attention_plain` — attention with the score rows of one
+  query tile materialised in float32 at a time, masked by absolute index
+  exactly as the kernel masks, fully-masked rows zeroed.  Counterpart of
+  the JAX package's ``ref.flash_reference`` (which materialises all rows
+  at once and does not zero fully-masked rows; no test shape has one).
+* :func:`mamba_chunk_scan_plain` — the Mamba2 SSD chunked scan, batched
+  over (batch, head), walking the chunks in order.  Same function as the
+  JAX package's token recurrence ``ref.mamba_chunk_scan_reference``,
+  computed in the chunked form the kernel uses.
+
+The kernel wrappers take these for CPU tensors; ``chip_smoke.py`` holds
+each kernel against its plain version on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["NEG_INF", "flash_attention_plain", "mamba_chunk_scan_plain"]
+
+NEG_INF = -2.0**30
+_PLAIN_BLOCK_Q = 1024  # query rows scored at a time: bounds memory, not the result
+
+
+def flash_attention_plain(
+    q: torch.Tensor,   # (B, H, Sq, hd)
+    k: torch.Tensor,   # (B, Hkv, Sk, hd)
+    v: torch.Tensor,   # (B, Hkv, Sk, hd)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Attention, head-major; returns (B, H, Sq, hd) in q's dtype.
+
+    Query head ``h`` reads KV head ``h // (H // Hkv)``.  A key ``k`` is
+    seen by query ``q`` iff ``k <= q`` (causal) and ``k > q - window``
+    (window), both absolute indices.  Products and the softmax are float32,
+    one tile of query rows at a time."""
+    b, h, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    k_pos = torch.arange(sk, device=q.device)
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, _PLAIN_BLOCK_Q):
+        q1 = min(sq, q0 + _PLAIN_BLOCK_Q)
+        bq = q1 - q0
+        qf = q[:, :, q0:q1].to(torch.float32).reshape(b, hkv, rep * bq, hd)
+        s = torch.matmul(qf, kf.transpose(-1, -2)).view(b, h, bq, sk) * scale
+        q_pos = torch.arange(q0, q1, device=q.device)
+        mask = torch.ones((bq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = torch.where(mask, p, 0.0)  # a fully-masked row is zero, not uniform
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        o = torch.matmul(p.view(b, hkv, rep * bq, sk), vf).view(b, h, bq, hd)
+        out[:, :, q0:q1] = (o / l).to(q.dtype)
+    return out
+
+
+def mamba_chunk_scan_plain(
+    x: torch.Tensor,    # (B, H, NC, Q, P)
+    dt: torch.Tensor,   # (B, H, NC, Q)
+    ld: torch.Tensor,   # (B, H, NC, Q)  log decay dt·a (a < 0)
+    bm: torch.Tensor,   # (B, NC, Q, N)
+    cm: torch.Tensor,   # (B, NC, Q, N)
+    h0: torch.Tensor,   # (B, H, P, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan in float32: ``y (B, H, NC, Q, P)``, final ``h``.
+
+    Per chunk, with ``cum`` the within-chunk cumulative sum of ``ld``:
+    ``y_t = Σ_{s≤t} exp(cum_t − cum_s)·(C_t·B_s)·dt_s·x_s + exp(cum_t)·C_t·hᵀ``
+    with ``h`` the state entering the chunk, then
+    ``h ← h·exp(cum_end) + Σ_s exp(cum_end − cum_s)·dt_s·x_s ⊗ B_s``.
+    The decay is exponentiated only where ``s ≤ t`` (there it is ≤ 0)."""
+    x, dt, ld, bm, cm = (t.to(torch.float32) for t in (x, dt, ld, bm, cm))
+    nc, q = x.shape[2], x.shape[3]
+    cum = torch.cumsum(ld, dim=-1)                                   # (B,H,NC,Q)
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    y = torch.empty_like(x)
+    h = h0.to(torch.float32).clone()
+    for c in range(nc):
+        cc = cum[:, :, c]                                            # (B,H,Q)
+        decay = cc[..., :, None] - cc[..., None, :]                  # (B,H,Q,Q)
+        gate = torch.exp(torch.where(causal, decay, -math.inf))
+        scores = torch.matmul(cm[:, c], bm[:, c].transpose(-1, -2))  # (B,Q,Q)
+        w = scores[:, None] * gate * dt[:, :, c][..., None, :]
+        ch = torch.matmul(cm[:, c][:, None], h.transpose(-1, -2))    # (B,H,Q,P)
+        y[:, :, c] = torch.matmul(w, x[:, :, c]) + torch.exp(cc)[..., None] * ch
+        tail = torch.exp(cc[..., -1:] - cc) * dt[:, :, c]           # (B,H,Q)
+        s_n = torch.matmul(x[:, :, c].transpose(-1, -2),
+                           bm[:, c][:, None] * tail[..., None])      # (B,H,P,N)
+        h = h * torch.exp(cc[..., -1])[..., None, None] + s_n
+    return y, h

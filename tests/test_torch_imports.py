@@ -27,6 +27,11 @@ def test_port_has_the_expected_modules():
         "obs/trace.py", "obs/metrics.py", "service/broker.py",
         "service/session.py", "service/workload.py", "service/scheduler.py",
         "service/faults.py", "service/resilience.py", "convert.py",
+        "configs/base.py", "configs/__init__.py", "configs/zamba2_1p2b.py",
+        "models/common.py", "models/attention.py", "models/ffn.py", "models/ssm.py",
+        "models/transformer.py", "kernels/ref.py", "kernels/ops.py",
+        "kernels/flash_attention.py", "kernels/mamba_scan.py", "core/placement.py",
+        "profilers/program.py", "serving/engine.py", "launch/serve.py",
     ):
         assert expected in names
 
@@ -44,6 +49,13 @@ def test_kernel_sources_are_in_the_tree():
     assert (csrc / "mcop_sw.cu").is_file()
     assert (csrc / "mcop_fused.cu").is_file()
     assert (csrc / "sw_common.cuh").is_file()
+    assert (csrc / "flash_attention.cu").is_file()
+    assert (csrc / "mamba_scan.cu").is_file()
+    from repro_torch.kernels import build
+
+    for name in build.KERNEL_SOURCES:
+        assert (csrc / f"{name}.cu").is_file()
+    assert {"flash_attention", "mamba_scan"} <= set(build.KERNEL_SOURCES)
 
 
 def test_import_and_cpu_solve_do_not_build_or_load_jax(tmp_path):
@@ -54,7 +66,9 @@ def test_import_and_cpu_solve_do_not_build_or_load_jax(tmp_path):
     code = """
 import sys
 import repro_torch.core, repro_torch.kernels, repro_torch.obs, repro_torch.service
-import repro_torch.convert
+import repro_torch.convert, repro_torch.configs, repro_torch.models.transformer
+import repro_torch.serving, repro_torch.launch.serve, repro_torch.profilers
+import repro_torch.core.placement
 from repro_torch.kernels import build
 def refuse(*a, **k):
     raise AssertionError("the build was reached on the CPU")
@@ -68,6 +82,20 @@ p = AppProfile.from_wcg_times(g)
 r = solve_envs(p, ResponseTimeModel(), [Environment.symmetric(1.0, 3.0)],
                backend="cuda_fused", device="cpu")
 assert r[0].local_mask.shape == (6,)
+import torch
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.kernels import ops
+from repro_torch.models.transformer import Model
+x = torch.randn(1, 8, 2, 4)
+assert ops.flash_attention(x, x, x, window=3).shape == (1, 8, 2, 4)
+dt = torch.rand(1, 8, 2)
+y, h = ops.mamba_chunk_scan(x, dt, -dt, x[:, :, 0], x[:, :, 1], torch.zeros(1, 2, 4, 4),
+                            chunk=4)
+assert y.shape == (1, 8, 2, 4) and h.shape == (1, 2, 4, 4)
+m = Model(reduce_config(get_config("zamba2-1.2b")), device="cpu")
+logits, cache = m.prefill(m.init(0), {"tokens": torch.ones(1, 20, dtype=torch.long)},
+                          m.init_cache(1, 24))
+assert logits.shape == (1, 256) and cache["length"] == 20
 assert build._LIBS == {}
 assert "jax" not in sys.modules and "repro" not in sys.modules
 print("ok")
@@ -88,7 +116,8 @@ def test_default_build_dir_is_inside_the_tree_and_ignored():
 
 
 ENTRIES = ["mcop_batch", "solve_envs", "mcop", "price_summary",
-           "tick_sessions", "controller", "broker", "resilient_broker"]
+           "tick_sessions", "controller", "broker", "resilient_broker",
+           "model_init", "model_cache", "engine", "serve_main", "placement_batch"]
 
 _NO_GPU_CODE = """
 import json
@@ -114,7 +143,23 @@ def broker(**kw):
     BrokerSession(b, "app").observe(env)
     b.tick()
 
+from repro_torch.configs import get_config, reduce_config, SHAPES
+from repro_torch.core.placement import TPUV5E_TIER, plan_placement_batch
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models.transformer import Model
+from repro_torch.profilers import stage_specs
+from repro_torch.serving import ServingConfig, ServingEngine
+
+zamba = reduce_config(get_config("zamba2-1.2b"))
+
 runs = {
+    "model_init": lambda: Model(zamba).init(0),
+    "model_cache": lambda: Model(zamba).init_cache(1, 8),
+    "engine": lambda: ServingEngine(Model(zamba), None, ServingConfig()),
+    "serve_main": lambda: serve_main(["--arch", "zamba2-1.2b", "--reduced"]),
+    "placement_batch": lambda: plan_placement_batch(
+        stage_specs(zamba, SHAPES["decode_32k"]), TPUV5E_TIER, TPUV5E_TIER,
+        inter_tier_bws=[1e9]),
     "mcop_batch": lambda: T.mcop_batch([g]),
     "solve_envs": lambda: T.solve_envs(p, model, [env]),
     "mcop": lambda: T.mcop(g, backend="cuda"),
