@@ -32,14 +32,33 @@ one JSON object per line:
 7. ``serve_replay`` — the same engine at reduced width in f32 on the card and
                       on the CPU (plain versions), prompts of 4100-4608 tokens:
                       greedy tokens equal, prefill logits within tolerance.
+8. ``min_cut``      — the per-phase kernel (B3) against its plain version on
+                      single phases of 6-1024 vertices ((s, t) equal, cuts to
+                      ``rtol=1e-5``), then ``kernels.ops.mcop_min_cut`` on the
+                      card on the paper example (cut 22, {a, c} local) and on
+                      100 random graphs of 5-256 vertices, every mask equal to
+                      the f64 ``mcop_reference``'s; B3's time (launches
+                      captured in one CUDA graph, and back to back through its
+                      wrapper) and the loop's.
+9. ``serve_broker`` — ``python -m repro_torch.launch.serve_broker --backend
+                      cuda`` as a process of its own on the card, driven over a
+                      unix socket by a ``BrokerClient``: 300 sessions, 24 ticks,
+                      a 2048-slot batch group; replies ``==`` an in-process
+                      broker's, placements equal to the f64 reference's; then
+                      a server that SIGKILLs itself mid-tick, restarted on its
+                      journal and snapshots, whose replies ``==`` the run that
+                      was not killed.  Ticks/s and round-trip ms per submit.
 
-Two main paths, each driven with every launch counter set to 0 just before
-it and read just after: phases 4-5 (the broker tick: B1, B2) and phase 6
-(serving: B4 19 times and B5 38 times per prefill).  A kernel of a path
-that was not launched there fails the run.  Then a ``kernel_work`` line
-counts the work of the MCOP timed shapes (computed from the inputs, not
-measured), a ``{"kernels": [...]}`` line gives, per kernel, its launches
-on its main path, its measured time, its plain version's measured time, the
+Three main paths, each driven with every launch counter set to 0 just before
+it and read just after: phases 4-5 (the broker tick: B1, B2), phase 6
+(serving: B4 19 times and B5 38 times per prefill) and phase 8 (the
+per-phase tier: B3 once per MinCutPhase).  A kernel of a path that was not
+launched there fails the run; the server of phase 9 runs B1 in its own
+process, so the phase fails unless its tick reports show solves.  Then a
+``kernel_work`` line counts the work of the MCOP kernels' timed shapes
+(absorb steps, row traffic, B3's chain and bound terms; computed from the
+inputs, not measured), a ``{"kernels": [...]}`` line gives, for all five
+kernels, its launches on its main path, its measured time, its plain version's measured time, the
 time of one PyTorch call computing the same function where there is one,
 and its roofline bound at the main path's shape; the GPU's name and power
 limit; and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -60,6 +79,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -95,6 +115,7 @@ PLANE = ((64, 4096, "weighted"), (256, 1024, "time"))   # (n, K, cost model)
 HETERO = (2048, 5, 200)            # graphs, smallest, largest
 BROKER = {"u": 100_000, "users_b": 256, "steps_b": 6, "n_b": 64, "replay_u": 2_000}
 LINE_SHAPE = (64, 4096)            # (n, K) of the per-kernel line
+BROKER_PATH_KERNELS = ("mcop_stoer_wagner_kernel", "mcop_fused_solve_kernel")
 
 # flash-attention checks: (B, H, Hkv, Sq, Sk, hd, causal, window, dtype,
 # layout).  The first is the hybrid model's prefill (zamba2-1.2b: 32 heads
@@ -139,6 +160,22 @@ SERVE = {"arch": "zamba2-1.2b", "requests": 8, "max_batch": 4,
 # CPU's matrix products) through two layers; atol = rtol x the logits' max
 REPLAY = {"requests": 4, "max_batch": 2, "prompt": (4100, 4608), "new_tokens": 8,
           "seed": 1, "logits_rtol": 1e-4}
+# the per-phase tier: B3 against its plain version on single phases at
+# phase_n (all vertices alive, and with holes after random merges), then
+# mcop_min_cut on `graphs` random graphs of sizes log-uniform over `sizes`
+# (both ends included; seeds seed + i) against the f64 oracle, which
+# `workers` processes solve meanwhile; B3 and the loop timed at time_n, the
+# kernels line at line_n
+MIN_CUT = {"phase_n": (6, 16, 64, 256, 1024), "graphs": 100, "sizes": (5, 256),
+           "seed": 1000, "workers": 6, "time_n": (64, 256), "line_n": 256,
+           "time_reps": 20, "loop_reps": 3}
+# the broker behind a process boundary: `sessions` per-user sessions through
+# `ticks` ticks of the demo tenant (`nodes` vertices), a batch group of
+# `capacity` slots from tick `group_tick` on; the second server SIGKILLs
+# itself in tick `kill_tick` and is restarted on its journal and snapshots
+SERVE_BROKER = {"nodes": 24, "seed": 0, "sessions": 300, "ticks": 24,
+                "group_tick": 14, "capacity": 2048, "kill_tick": 10,
+                "snapshot_every": 4, "ready_s": 120.0}
 
 
 def emit(obj: dict) -> None:
@@ -163,6 +200,27 @@ def cuda_ms(fn, *, reps: int, warmup: int = 1) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, *, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` with ``reps`` calls captured in
+    one CUDA graph and replayed, by CUDA events: the kernels' device time
+    without the host's work between launches."""
+    fn()  # warm: build, load, allocate outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -606,6 +664,30 @@ def hold_events(tag, got_events, want_events) -> int:
     return ties
 
 
+def hold_batch_reports(tag, got_reports, want_reports) -> int:
+    """Every batched tick's decisions must match the reference replay, its
+    cuts within tolerance, and a placement that differs must price to the
+    same cost (an exact tie).  Returns ties."""
+    ties = 0
+    if len(got_reports) != len(want_reports):
+        raise AssertionError(f"{tag}: tick count differs from reference")
+    for rg, rw in zip(got_reports, want_reports):
+        act = rw.active
+        if not (np.array_equal(rg.active, act)
+                and np.array_equal(rg.repartitioned, rw.repartitioned)):
+            raise AssertionError(f"{tag}: decisions differ from reference")
+        tol = RTOL * (np.abs(rw.min_cut[act]) + rw.no_offload_cost[act])
+        if not (np.abs(rg.min_cut[act] - rw.min_cut[act]) <= tol).all():
+            raise AssertionError(f"{tag}: cuts differ from reference")
+        differ = (rg.placements[act] != rw.placements[act]).any(-1)
+        if differ.any():
+            same_cost = np.abs(rg.partial_cost[act] - rw.partial_cost[act]) <= tol
+            if not same_cost[differ].all():
+                raise AssertionError(f"{tag}: placements differ from reference")
+            ties += int(differ.sum())
+    return ties
+
+
 def phase_broker(rng) -> dict:
     from repro_torch.core.cost_models import ResponseTimeModel
     from repro_torch.core.placement_cache import PlacementCache
@@ -662,8 +744,9 @@ def phase_broker(rng) -> dict:
                          "device_summary": fused.device_summary}
     if not all(np.isfinite(v) for v in fused.device_summary.values()):
         raise AssertionError("broker: device telemetry not finite")
-    out["launches"] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
-    out["main_path_launches"] = dict(LAUNCHES)  # since the reset before phase 3
+    out["launches"] = {k: LAUNCHES[k] - before[k] for k in BROKER_PATH_KERNELS}
+    # since the reset before phase 4
+    out["main_path_launches"] = {k: LAUNCHES[k] for k in BROKER_PATH_KERNELS}
     for name, count in out["launches"].items():
         if count <= 0:
             raise AssertionError(f"broker path never launched {name}")
@@ -673,20 +756,7 @@ def phase_broker(rng) -> dict:
     got = drive_broker("cuda", DEVICE, small, users_b, steps_b, profile_b)
     want = drive_broker("reference", "cpu", small, users_b, steps_b, profile_b)
     ties = hold_events("object path", got[1], want[1])
-    for rg, rw in zip(got[0], want[0]):
-        act = rw.active
-        if not (np.array_equal(rg.active, act)
-                and np.array_equal(rg.repartitioned, rw.repartitioned)):
-            raise AssertionError("batched path: decisions differ from reference")
-        tol = RTOL * (np.abs(rw.min_cut[act]) + rw.no_offload_cost[act])
-        if not (np.abs(rg.min_cut[act] - rw.min_cut[act]) <= tol).all():
-            raise AssertionError("batched path: cuts differ from reference")
-        differ = (rg.placements[act] != rw.placements[act]).any(-1)
-        if differ.any():
-            same_cost = np.abs(rg.partial_cost[act] - rw.partial_cost[act]) <= tol
-            if not same_cost[differ].all():
-                raise AssertionError("batched path: placements differ from reference")
-            ties += int(differ.sum())
+    ties += hold_batch_reports("batched path", got[0], want[0])
     out["replay"] = {"sessions": small, "object_users": users_b,
                      "events_checked": sum(len(e) for e in want[1])
                      + sum(int(r.active.sum()) for r in want[0]),
@@ -1174,6 +1244,455 @@ def phase_serve_replay() -> dict:
             "logits_max_abs_err": max(errs), "device_seconds": dev_s, "cpu_seconds": cpu_s}
 
 
+# ----------------------------------------------------------------------
+# Phase 8: the per-phase MCOP tier (kernel B3 and mcop_min_cut)
+# ----------------------------------------------------------------------
+
+
+def merged_phase_state(rng, adj, wl, wc, pinned, merges: int):
+    """One MinCutPhase's inputs on a graph of ``random_batch``: the pinned
+    vertices folded into the first of them, then ``merges`` Algorithm-1
+    merges of random alive pairs in f32 and in the host loop's order, so
+    that ``alive`` has holes and the anchor may have moved.  Returns
+    ``(adj, gains, alive, src, C_local)``."""
+    adj, wl, wc = adj.copy(), wl.copy(), wc.copy()
+    alive = np.ones(adj.shape[0], bool)
+    pins = np.nonzero(pinned)[0]
+    src = int(pins[0]) if pins.size else 0
+    ctot = float(wl.sum())
+
+    def merge(s, t):
+        adj[s, :] += adj[t, :]
+        adj[:, s] += adj[:, t]
+        adj[s, s] = 0.0
+        adj[t, :] = 0.0
+        adj[:, t] = 0.0
+        wl[s] += wl[t]
+        wc[s] += wc[t]
+        alive[t] = False
+
+    for t in pins[1:]:
+        merge(src, int(t))
+    for _ in range(merges):
+        s, t = (int(v) for v in rng.choice(np.nonzero(alive)[0], 2, replace=False))
+        merge(s, t)
+        if t == src:
+            src = s
+    return adj, wl - wc, alive, src, ctot
+
+
+def phase_min_cut(rng) -> dict:
+    """B3 against its plain version on single phases; ``mcop_min_cut`` on
+    the card (the path that launches B3, read with the launch counters set
+    to 0 just before it) on the paper example and on random graphs, every
+    mask equal to the f64 oracle's; B3's and the loop's times."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    from repro_torch.core import mcop_reference, paper_example_graph, random_wcg
+    from repro_torch.kernels import mcop_phase as K
+    from repro_torch.kernels.ops import mcop_min_cut
+    from repro_torch.kernels.ref import mcop_phase_plain
+
+    spec = MIN_CUT
+    lo, hi = spec["sizes"]
+    sizes = np.exp(np.random.default_rng(spec["seed"]).uniform(
+        np.log(lo), np.log(hi + 1), spec["graphs"])).astype(int)
+    sizes[:2] = (lo, hi)
+    graphs = [random_wcg(int(n), rng=np.random.default_rng(spec["seed"] + i))
+              for i, n in enumerate(sizes)]
+    out = {"phase": "min_cut"}
+    # the f64 oracle is a host loop of ~n^2/2 steps: solve it in worker
+    # processes while the card works
+    with ProcessPoolExecutor(spec["workers"], mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        oracle = [pool.submit(mcop_reference, g) for g in graphs]
+
+        # ---- B3 against mcop_phase_plain, single phases ------------------
+        checks, differ, worst = 0, [], 0.0
+        for n in spec["phase_n"]:
+            sparse = min(0.4, 6.4 / n)
+            # graph 0: cloud cost half the local; 1: contested costs; 2: sparse;
+            # 3: sparse, small integer weights (exact ties)
+            host = random_batch(rng, 4, n, edge_prob=np.array([0.4, 0.4, sparse, sparse]))
+            for i in range(4):
+                for merges in (0, n // 3):
+                    adj, gains, alive, src, ctot = merged_phase_state(
+                        rng, *(a[i] for a in host), merges)
+                    dev = to_dev((adj, gains, alive))
+                    got = K.phase_result(K.mcop_phase_packed(*dev, src, ctot))
+                    cut, s, t = mcop_phase_plain(*dev, src, ctot)
+                    want = (float(cut), s, t)
+                    err = abs(got[0] - want[0])
+                    worst = max(worst, err)
+                    checks += 1
+                    if got[1:] != want[1:] or err > RTOL * abs(want[0]):
+                        differ.append({"n": n, "graph": i, "merges": merges,
+                                       "src": src, "kernel": got, "plain": want})
+        out["phase_checks"] = {"phases": checks, "differences": differ,
+                               "max_abs_err": worst, "n": list(spec["phase_n"])}
+        if differ:
+            emit(out)
+            raise AssertionError(f"min_cut: B3 differs from its plain version {differ}")
+
+        # ---- the main path: mcop_min_cut on the card ---------------------
+        paper = paper_example_graph()
+        reset_all_launches()  # ---- the per-phase path starts here ----
+        t0 = time.perf_counter()
+        paper_cut, paper_mask = mcop_min_cut(paper.adj, paper.w_local, paper.w_cloud,
+                                             paper.offloadable, device=DEVICE)
+        results = [mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable, device=DEVICE)
+                   for g in graphs]
+        path_s = time.perf_counter() - t0
+        launches = all_launches()  # ---- and ends here ----
+        refs = [f.result() for f in oracle]
+
+    # ---- B3's time per launch, and the loop's per graph, with the -----
+    # ---- oracle's workers gone (they share the host with the loop) ---
+    timing, work, loop = [], [], []
+    for n in spec["time_n"]:
+        host = random_batch(rng, 2, n)
+        adj, gains, alive, src, ctot = merged_phase_state(
+            rng, *(a[1] for a in host), 0)
+        dev = to_dev((adj, gains, alive))
+        n_alive = int(alive.sum())
+        plain, plain_ms = timed(lambda: mcop_phase_plain(*dev, src, ctot))
+        got = K.phase_result(K.mcop_phase_packed(*dev, src, ctot))
+        if got[1:] != plain[1:]:
+            raise AssertionError(f"min_cut: B3 differs from plain at n={n}")
+        nbytes, flops = (n_alive + 2) * n * 4, 3.0 * n * n
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        g = random_wcg(n, rng=np.random.default_rng(spec["seed"] - n))
+        mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable, device=DEVICE)  # warm
+        t0 = time.perf_counter()
+        for _ in range(spec["loop_reps"]):
+            mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable, device=DEVICE)
+        loop_ms = (time.perf_counter() - t0) / spec["loop_reps"] * 1e3
+        t0 = time.perf_counter()
+        mcop_reference(g)
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        launch = functools.partial(K.mcop_phase_packed, *dev, src, ctot)
+        timing.append({
+            "n": n, "ms": graph_ms(launch, reps=spec["time_reps"]),
+            "wrapper_ms": cuda_ms(launch, reps=spec["time_reps"]),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "max_abs_err": abs(got[0] - float(plain[0]))})
+        work.append({"n": n, "n_alive": n_alive, "chain_argmaxes": n_alive - 1,
+                     "bound_bytes": nbytes, "bound_flops": flops})
+        loop.append({"n": n, "min_cut_ms_per_graph": loop_ms,
+                     "reference_ms_per_graph": ref_ms})
+    out["timing"], out["work"], out["loop"] = timing, work, loop
+
+    local = {paper.names[i] for i in np.nonzero(paper_mask)[0]}
+    if paper_cut != 22.0 or local != {"a", "c"}:
+        raise AssertionError(f"min_cut: paper example gave {paper_cut} with {local}")
+    # one launch per phase: n_alive - 1 phases after the fold
+    phases = sum(g.n - max(int((~g.offloadable).sum()) - 1, 0) - 1
+                 for g in (paper, *graphs))
+    if launches["mcop_phase_kernel"] != phases or any(
+            v for k, v in launches.items() if k != "mcop_phase_kernel"):
+        raise AssertionError(f"min_cut: launches {launches}, expected {phases} of B3 only")
+    differ, worst = [], 0.0
+    for i, (g, (cut, mask), ref) in enumerate(zip(graphs, results, refs)):
+        err = abs(cut - ref.min_cut)
+        worst = max(worst, err)
+        if not np.array_equal(mask, ref.local_mask) or err > RTOL * abs(ref.min_cut):
+            differ.append({"graph": i, "n": g.n, "seed": spec["seed"] + i,
+                           "input": "random_wcg(n, rng=np.random.default_rng(seed))",
+                           "cut": cut, "reference_cut": ref.min_cut,
+                           "price_of_mask": g.total_cost(mask),
+                           "mask": mask.astype(int).tolist(),
+                           "reference_mask": ref.local_mask.astype(int).tolist()})
+    out["main_path"] = {
+        "paper_example": {"cut": paper_cut, "local": sorted(local)},
+        "graphs": len(graphs), "sizes": [int(sizes.min()), int(sizes.max())],
+        "mean_n": float(sizes.mean()), "mask_differences": differ,
+        "max_abs_cut_err": worst, "seconds": path_s, "launches": launches,
+        "phases": phases}
+    out["main_path_launches"] = launches
+    if differ:
+        emit(out)
+        raise AssertionError(f"min_cut: {len(differ)} masks differ from the f64 oracle")
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 9: the broker served across a process boundary
+# ----------------------------------------------------------------------
+
+
+class SubmitsAsEnvs:
+    """A broker or a client as BrokerSession sees it, sending each
+    session's solve as its environment — what a client sends; the server
+    rebuilds the graph — and timing every submit."""
+
+    def __init__(self, target):
+        self.target = target
+        self.backend = target.backend
+        self.device = target.device
+        self.tenant = target.tenant
+        self.submits = 0
+        self.submit_s = 0.0
+
+    def submit_graph(self, name, g, env):
+        t0 = time.perf_counter()
+        fut = self.target.submit(name, env)
+        self.submit_s += time.perf_counter() - t0
+        self.submits += 1
+        return fut
+
+
+def drive_serving(front: SubmitsAsEnvs, tick, register_group) -> dict:
+    """The serving workload: ``sessions`` per-user sessions through
+    ``ticks`` ticks, and from ``group_tick`` on a batch session group of
+    ``capacity`` slots observed every tick.  Returns per-session events,
+    tick reports, batch reports and the seconds spent in ticks."""
+    from repro_torch.service import BrokerSession, TrafficGenerator, user_traces
+
+    spec = SERVE_BROKER
+    walks = user_traces(spec["sessions"], spec["ticks"], seed=21)
+    traffic = TrafficGenerator(spec["capacity"], seed=22, arrival_rate=spec["capacity"] / 50,
+                               churn=0.05, initial=spec["capacity"] // 2)
+    sessions = [BrokerSession(front, "app", threshold=0.15, min_interval=2)
+                for _ in walks]
+    out = {"events": [[] for _ in walks], "ticks": [], "batch": [], "tick_s": 0.0,
+           "group": None}
+    group = None
+    for i in range(spec["ticks"]):
+        for sess, walk in zip(sessions, walks):
+            sess.observe(walk[i])
+        if i >= spec["group_tick"]:
+            if group is None:
+                group = register_group()
+                out["group"] = getattr(group, "id", None)
+            tk = traffic.step()
+            group.observe(tk.envs, arrived=np.flatnonzero(tk.arrived),
+                          departed=np.flatnonzero(tk.departed))
+        t0 = time.perf_counter()
+        out["ticks"].append(tick())
+        out["tick_s"] += time.perf_counter() - t0
+        for u, sess in enumerate(sessions):
+            out["events"][u].extend(sess.drain())
+        if group is not None:
+            out["batch"].extend(group.drain())
+    return out
+
+
+def in_process_serving(backend: str, device: str) -> tuple[dict, object]:
+    """The workload against an in-process broker set up as the server sets
+    up its own (``launch.serve_broker``: demo tenant, broker clock at 0,
+    the ``--batch-capacity`` group)."""
+    from repro_torch.launch.serve_broker import demo_tenant
+    from repro_torch.service import OffloadBroker
+
+    spec = SERVE_BROKER
+    broker = OffloadBroker(backend=backend, device=device, clock=lambda: 0.0)
+    broker.register("app", *demo_tenant(spec["nodes"], spec["seed"]))
+    broker.register_batch("app", spec["capacity"])
+    front = SubmitsAsEnvs(broker)
+    run = drive_serving(front, broker.tick, lambda: broker.register_batch(
+        "app", spec["capacity"], threshold=0.15, min_interval=2))
+    run["submits"], run["submit_s"] = front.submits, front.submit_s
+    return run, broker
+
+
+class ServerProcess:
+    """``python -m repro_torch.launch.serve_broker`` on the card, its
+    standard output and errors in files that go to this script's output
+    when a check fails."""
+
+    def __init__(self, workdir: str, name: str, *, kill_at_tick=None):
+        spec = SERVE_BROKER
+        self.sock = os.path.join(workdir, "solver.sock")
+        self.log_out = os.path.join(workdir, f"{name}.out")
+        self.log_err = os.path.join(workdir, f"{name}.err")
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve_broker",
+               "--backend", "cuda", "--device", DEVICE, "--socket", self.sock,
+               "--journal", os.path.join(workdir, "journal.jsonl"),
+               "--snapshot-dir", os.path.join(workdir, "snaps"),
+               "--snapshot-every", str(spec["snapshot_every"]),
+               "--nodes", str(spec["nodes"]), "--seed", str(spec["seed"]),
+               "--batch-capacity", str(spec["capacity"])]
+        if kill_at_tick is not None:
+            cmd += ["--kill-at-tick", str(kill_at_tick)]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        with open(self.log_out, "w") as fo, open(self.log_err, "w") as fe:
+            self.proc = subprocess.Popen(cmd, stdout=fo, stderr=fe, env=env, cwd=ROOT)
+        self.started = time.perf_counter()
+
+    def wait_ready(self) -> float:
+        """Seconds from the start to the READY line; fails past the limit."""
+        limit = SERVE_BROKER["ready_s"]
+        while time.perf_counter() - self.started < limit:
+            with open(self.log_out) as f:
+                if any(line.startswith("READY") for line in f):
+                    return time.perf_counter() - self.started
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"serve_broker: the server did not reach READY within "
+                             f"{limit} s (exit {self.proc.poll()})\n{self.logs()}")
+
+    def logs(self) -> str:
+        text = []
+        for path in (self.log_out, self.log_err):
+            with open(path) as f:
+                text.append(f"--- {os.path.basename(path)}\n{f.read()}")
+        return "\n".join(text)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def reply_keys(run: dict) -> dict:
+    """A run's replies as the wire carries them, for ``==``."""
+    from repro_torch.service.server import batch_report_frame, tick_report_frame
+
+    def tick_frame(r):
+        return r if isinstance(r, dict) else tick_report_frame(r)
+
+    def batch_frame(r):
+        return r if isinstance(r, dict) else batch_report_frame(run["gid"], r)
+
+    return {
+        "events": [[event_fields(e) for e in evs] for evs in run["events"]],
+        "ticks": json.dumps([tick_frame(r) for r in run["ticks"]], sort_keys=True),
+        "batch": json.dumps([batch_frame(r) for r in run["batch"]], sort_keys=True),
+    }
+
+
+def event_fields(e) -> tuple:
+    return (e.step, e.env, float(e.result.min_cut),
+            tuple(bool(b) for b in e.result.local_mask), e.partial_cost,
+            e.no_offload_cost, e.full_offload_cost, e.gain, e.repartitioned,
+            e.cache_hit)
+
+
+def phase_serve_broker() -> dict:
+    """The broker behind a process boundary on the card: a solver process
+    with ``--backend cuda`` driven by a BrokerClient; replies ``==`` an
+    in-process broker's on the same inputs, placements equal to the f64
+    reference's; then SIGKILL mid-tick, warm restart on the same journal
+    and snapshots, and replies ``==`` the run that was not killed."""
+    import tempfile
+
+    from repro_torch.launch.serve_broker import demo_tenant
+    from repro_torch.service import BrokerClient, RetryPolicy, unix_address
+
+    spec = SERVE_BROKER
+    out = {"phase": "serve_broker", "spec": spec}
+    servers = []
+    with tempfile.TemporaryDirectory(prefix="serve_broker_") as tmp:
+        try:
+            dirs = {k: os.path.join(tmp, k) for k in ("a", "b")}
+            for d in dirs.values():
+                os.makedirs(d)
+            # both servers boot while the in-process runs go
+            servers.append(ServerProcess(dirs["a"], "a"))
+            servers.append(ServerProcess(dirs["b"], "b_killed", kill_at_tick=spec["kill_tick"]))
+            local, local_broker = in_process_serving("cuda", DEVICE)
+            reference, _ = in_process_serving("reference", "cpu")
+
+            def client(d, name):
+                return BrokerClient(
+                    unix_address(os.path.join(d, "solver.sock")),
+                    tenants={"app": demo_tenant(spec["nodes"], spec["seed"])},
+                    client=name, timeout=spec["ready_s"],
+                    retry=RetryPolicy(max_retries=1, base_backoff_s=0.01,
+                                      max_backoff_s=0.05))
+
+            # ---- run A: across the boundary, not killed ------------------
+            ready_a = servers[0].wait_ready()
+            ca = client(dirs["a"], "a")
+            ca.connect()
+            if ca.backend != "cuda":
+                raise AssertionError(f"serve_broker: the server runs {ca.backend!r}")
+            front = SubmitsAsEnvs(ca)
+            remote = drive_serving(front, ca.tick, lambda: ca.register_batch(
+                "app", spec["capacity"], threshold=0.15, min_interval=2))
+            telemetry = ca.telemetry()
+            ca.close()
+
+            # ---- run B: killed in tick kill_tick, restarted warm ---------
+            ready_b = servers[1].wait_ready()
+            cb = client(dirs["b"], "b")
+            cb.connect()
+            restart = {}
+
+            def tick_b():
+                try:
+                    return cb.tick()
+                except ConnectionError:
+                    servers[1].proc.wait(timeout=60)
+                    if servers[1].proc.returncode != -9:
+                        raise
+                    restart["tick"] = cb.server_tick + 1
+                    servers.append(ServerProcess(dirs["b"], "b_restarted"))
+                    restart["ready_s"] = servers[-1].wait_ready()
+                    return cb.tick()
+
+            killed = drive_serving(SubmitsAsEnvs(cb), tick_b, lambda: cb.register_batch(
+                "app", spec["capacity"], threshold=0.15, min_interval=2))
+            resubmitted = cb.resubmitted
+            cb.close()
+            if restart.get("tick") != spec["kill_tick"]:
+                raise AssertionError(f"serve_broker: no SIGKILL at tick {spec['kill_tick']}")
+
+            for run in (local, reference):
+                run["gid"] = remote["group"]
+            want = reply_keys(local)
+            got_a, got_b = reply_keys(remote), reply_keys(killed)
+            for key in want:
+                if got_a[key] != want[key]:
+                    raise AssertionError(f"serve_broker: {key} across the boundary "
+                                         f"differ from the in-process broker's")
+                if got_b[key] != got_a[key]:
+                    raise AssertionError(f"serve_broker: {key} after the SIGKILL and "
+                                         f"warm restart differ from the run not killed")
+            summary = local_broker.telemetry.summary()
+            if json.dumps(telemetry["summary"], sort_keys=True) != json.dumps(
+                    summary, sort_keys=True):
+                raise AssertionError("serve_broker: telemetry differs from in-process")
+            ties = hold_events("serve_broker sessions", local["events"],
+                               reference["events"])
+            ties += hold_batch_reports("serve_broker batch group", local["batch"],
+                                       reference["batch"])
+            solved = sum(r["solved"] for r in remote["ticks"])
+            dispatches = sum(r["dispatches"] for r in remote["ticks"])
+            batch_solved = sum(r["solved"] for r in remote["batch"])
+            if solved <= 0 or dispatches <= 0 or batch_solved <= 0:
+                raise AssertionError("serve_broker: the server solved nothing on the card")
+            ticks = spec["ticks"]
+            out.update({
+                "server_ready_s": {"a": ready_a, "b": ready_b,
+                                   "b_restarted": restart["ready_s"]},
+                "sessions": spec["sessions"], "ticks": ticks,
+                "events": sum(len(e) for e in remote["events"]),
+                "batch_reports": len(remote["batch"]),
+                "server_solved": solved, "server_dispatches": dispatches,
+                "server_batch_solved": batch_solved,
+                "telemetry": telemetry["summary"],
+                "ticks_per_s": ticks / remote["tick_s"],
+                "in_process_ticks_per_s": ticks / local["tick_s"],
+                "submits": front.submits,
+                "round_trip_ms_per_submit": front.submit_s / front.submits * 1e3,
+                "in_process_ms_per_submit": local["submit_s"] / local["submits"] * 1e3,
+                "killed_at_tick": restart["tick"], "resubmitted": resubmitted,
+                "replies_equal_in_process": True, "replies_equal_after_restart": True,
+                "reference_tie_masks": ties,
+            })
+        except BaseException:
+            for server in servers:
+                print(server.logs(), file=sys.stderr, flush=True)
+            raise
+        finally:
+            for server in servers:
+                server.stop()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1214,7 +1733,7 @@ def main() -> int:
     t0 = time.perf_counter()
     plane = phase_solve_plane(rng)
     plane["seconds"] = time.perf_counter() - t0
-    plane["launches"] = dict(K.LAUNCHES)
+    plane["launches"] = {k: K.LAUNCHES[k] for k in BROKER_PATH_KERNELS}
     emit(plane)
     t0 = time.perf_counter()
     broker = phase_broker(rng)
@@ -1234,6 +1753,16 @@ def main() -> int:
     replay["seconds"] = time.perf_counter() - t0
     emit(replay)
 
+    t0 = time.perf_counter()
+    min_cut = phase_min_cut(rng)  # resets and reads the counters around its path
+    min_cut["seconds"] = time.perf_counter() - t0
+    emit(min_cut)
+    t0 = time.perf_counter()
+    served = phase_serve_broker()
+    served["seconds"] = time.perf_counter() - t0
+    served["gpu"] = gpu
+    emit(served)
+
     work, kernels = kernel_lines(rng, launches)
     for name, path, line in (
         ("flash_attention_kernel", "flash_attention", 152),
@@ -1250,6 +1779,22 @@ def main() -> int:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "shape")},
         })
+    line = next(t for t in min_cut["timing"] if t["n"] == MIN_CUT["line_n"])
+    kernels["kernels"].append({
+        "name": "mcop_phase_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mcop_phase.cu",
+        "replaces": "src/repro/kernels/mcop_phase.py:162",
+        "launches": min_cut["main_path_launches"]["mcop_phase_kernel"],
+        "max_abs_err": min_cut["phase_checks"]["max_abs_err"],
+        **{k: line[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        "shape": [line["n"], line["n"]],
+        "other_shapes": [t for t in min_cut["timing"] if t is not line],
+    })
+    work["mcop_phase_kernel"] = min_cut["work"]
+    for entry in kernels["kernels"]:
+        if entry["launches"] <= 0:
+            raise AssertionError(f"{entry['name']} was launched on no path")
     emit(work)
     emit(kernels)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -52,7 +52,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNEL_SOURCES = ("mcop_sw", "mcop_fused", "flash_attention", "mamba_scan")
+KERNEL_SOURCES = ("mcop_sw", "mcop_fused", "mcop_phase", "flash_attention", "mamba_scan")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

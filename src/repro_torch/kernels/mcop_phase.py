@@ -1,6 +1,6 @@
-"""MCOP solve kernels for an NVIDIA GPU, with their plain PyTorch versions.
+"""MCOP kernels for an NVIDIA GPU, with their plain PyTorch versions.
 
-Two kernels, both the full modified Stoer–Wagner of the paper's
+Two kernels solve the full modified Stoer–Wagner of the paper's
 Algorithms 1–3 batched over graphs, one thread block per graph:
 
 * :func:`mcop_stoer_wagner_kernel` (``csrc/mcop_sw.cu``) — solves a batch
@@ -11,10 +11,20 @@ Algorithms 1–3 batched over graphs, one thread block per graph:
   block and solves at once; per graph six floats come in and ``1 + n`` go
   out, and the ``(K, n, n)`` batch never exists in device memory.
 
+A third runs a single MinCutPhase (Algorithm 3) per launch, for the host
+loop of ``kernels.ops.mcop_min_cut``:
+
+* :func:`mcop_phase_kernel` (``csrc/mcop_phase.cu``) — one phase on an
+  ``(n, n)`` adjacency left in device memory; returns ``(cut, s, t)``.
+  Counterpart of the JAX package's Pallas kernel of the same name.
+  :func:`mcop_phase_packed` launches it and returns the three results
+  in one buffer, for a host loop that reads them back in one copy.
+
 Beside each stands its plain version (:func:`stoer_wagner_plain`,
-:func:`fused_solve_plain`): the same function as batched tensor code with
-fixed loop bounds and lane masks, no host synchronisation inside the
-loops.  A wrapper takes the plain version **only** for tensors that lie on
+:func:`fused_solve_plain`, ``kernels.ref.mcop_phase_plain``): the same
+function as tensor code, the two solves batched with fixed loop bounds and
+lane masks and no host synchronisation inside the loops.  A wrapper takes
+the plain version **only** for tensors that lie on
 the CPU; on a CUDA tensor it launches the kernel or raises
 ``kernels.build.KernelError`` — there is no switch and no ``try`` between
 them.  ``LAUNCHES`` counts kernel launches.
@@ -40,11 +50,15 @@ __all__ = [
     "KernelError",
     "mcop_stoer_wagner_kernel",
     "mcop_fused_solve_kernel",
+    "mcop_phase_kernel",
+    "mcop_phase_packed",
+    "phase_result",
     "stoer_wagner_plain",
     "fused_solve_plain",
     "FUSED_MODEL_KINDS",
     "SW_MAX_N",
     "FUSED_MAX_N",
+    "PHASE_MAX_N",
     "LAUNCHES",
     "reset_launches",
     "require_device",
@@ -66,10 +80,14 @@ FUSED_MODEL_KINDS = ("time", "energy", "weighted")
 # adjacency no longer fits a block's shared memory and lives in scratch.
 SW_MAX_N = 768
 FUSED_MAX_N = 512
+# The phase kernel takes what the reference package's phase wrapper takes:
+# an f32 adjacency of at most 12 MiB (its VMEM bound), n = 1773.
+PHASE_MAX_N = 1773
 
 # launches per kernel since the last reset_launches(); a wrapper adds one
 # exactly where it launches its kernel, and nowhere else
-LAUNCHES = {"mcop_stoer_wagner_kernel": 0, "mcop_fused_solve_kernel": 0}
+LAUNCHES = {"mcop_stoer_wagner_kernel": 0, "mcop_fused_solve_kernel": 0,
+            "mcop_phase_kernel": 0}
 
 
 def reset_launches() -> None:
@@ -277,6 +295,10 @@ def _library(name: str):
     if name == "mcop_sw":
         lib.repro_torch_sw_plan.argtypes = [_I, ctypes.POINTER(_I)]
         lib.repro_torch_sw_solve.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    elif name == "mcop_phase":
+        lib.repro_torch_phase_solve.argtypes = (
+            [_P] * 3 + [_I, ctypes.c_float, _I, _I, _P, _P]
+        )
     else:
         lib.repro_torch_fused_plan.argtypes = [_I, ctypes.POINTER(_I)]
         lib.repro_torch_fused_solve.argtypes = (
@@ -441,3 +463,80 @@ def mcop_fused_solve_kernel(
         )
     LAUNCHES["mcop_fused_solve_kernel"] += 1
     return cuts, masks
+
+
+def mcop_phase_packed(
+    adj: torch.Tensor,        # (n, n) f32 — current (possibly merged) graph
+    gains,                    # (n,) — w_local − w_cloud
+    alive,                    # (n,) bool, or f32 with 1.0 = alive
+    src,                      # anchor vertex (int or 0-d tensor)
+    c_local_total,            # C_local of the original graph
+) -> torch.Tensor:
+    """Run one MinCutPhase on ``adj``'s device.  Returns its result packed
+    in one ``(3,)`` int32 tensor there: the cut's f32 bits, ``s``, ``t``
+    (:func:`phase_result` reads it back in one copy).
+
+    ``gains`` and ``alive`` may be arrays or tensors; they are moved to
+    ``adj``'s device as f32 and bool.  A CUDA ``adj`` (contiguous f32)
+    launches ``csrc/mcop_phase.cu`` on the current stream without
+    synchronising; a CPU ``adj`` runs ``kernels.ref.mcop_phase_plain``.
+    Raises ``ValueError`` for ``n > PHASE_MAX_N``.
+    """
+    from repro_torch.kernels.ref import mcop_phase_plain
+
+    if adj.ndim != 2 or adj.shape[0] != adj.shape[1]:
+        raise ValueError(f"expected an (n, n) adjacency, got {tuple(adj.shape)}")
+    n = int(adj.shape[0])
+    if n > PHASE_MAX_N:
+        raise ValueError(
+            f"mcop_phase_kernel takes graphs of at most {PHASE_MAX_N} "
+            f"vertices, got n={n}"
+        )
+    dev = adj.device
+    gains = torch.as_tensor(gains, device=dev).to(torch.float32)
+    alive = torch.as_tensor(alive, device=dev)
+    if alive.dtype != torch.bool:
+        alive = alive > 0.5
+    src = int(src)
+    if not 0 <= src < n:
+        raise ValueError(f"src={src} is not a vertex of an n={n} graph")
+    ctot = float(torch.as_tensor(c_local_total, dtype=torch.float32))
+    _require(adj, "adj", (n, n), torch.float32, dev)
+    _require(gains, "gains", (n,), torch.float32, dev)
+    _require(alive, "alive", (n,), torch.bool, dev)
+    if dev.type == "cpu":
+        cut, s, t = mcop_phase_plain(adj, gains, alive, src, ctot)
+        return torch.cat([cut.reshape(1).view(torch.int32),
+                          torch.tensor([s, t], dtype=torch.int32)])
+    if dev.type != "cuda":
+        raise ValueError(f"no MCOP kernel for device {dev}")
+    out = torch.empty((3,), dtype=torch.int32, device=dev)
+    lib = _library("mcop_phase")
+    threads = min(256, max(32, (n + 31) // 32 * 32))
+    with torch.cuda.device(dev):
+        err = lib.repro_torch_phase_solve(
+            adj.data_ptr(), gains.data_ptr(), alive.data_ptr(), src, ctot, n,
+            threads, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise KernelError(
+            f"mcop_phase kernel launch refused (CUDA error {err}; n={n}, "
+            f"threads={threads})"
+        )
+    LAUNCHES["mcop_phase_kernel"] += 1
+    return out
+
+
+def mcop_phase_kernel(adj, gains, alive, src, c_local_total):
+    """One MinCutPhase as :func:`mcop_phase_packed` runs it, returned as
+    ``(cut, s, t)``: 0-d tensors on ``adj``'s device, f32, int32, int32
+    (views of the packed buffer)."""
+    out = mcop_phase_packed(adj, gains, alive, src, c_local_total)
+    return out[0:1].view(torch.float32)[0], out[1], out[2]
+
+
+def phase_result(packed: torch.Tensor) -> tuple[float, int, int]:
+    """``(cut, s, t)`` of :func:`mcop_phase_packed` as Python numbers: one
+    device-to-host copy on a GPU."""
+    host = packed.cpu()
+    return float(host[0:1].view(torch.float32)[0]), int(host[1]), int(host[2])

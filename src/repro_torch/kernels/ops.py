@@ -1,23 +1,27 @@
-"""The attention and Mamba2-scan kernels in the model's layout.
+"""The kernels as their callers use them.
 
-The model code keeps its ``(B, S, H, hd)`` layout; these functions hand
-the kernels head-major *views* of it (the kernels take strides), so the
-only copy made here is the scan's cast to float32.  Each runs on its
+The model code keeps its ``(B, S, H, hd)`` layout; the first two functions
+hand the kernels head-major *views* of it (the kernels take strides), so
+the only copy made there is the scan's cast to float32.  Each runs on its
 inputs' device: the kernel on a CUDA tensor, its plain version on a CPU
 tensor (see the kernel modules).
 
 ``flash_attention``   — ``models.attention.chunked_attention`` is this.
 ``mamba_chunk_scan``  — the scan core of ``models.ssm.mamba2_forward``.
+``mcop_min_cut``      — MCOP with one phase-kernel launch per MinCutPhase
+                        and the Algorithm-1 merges between them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan_kernel
+from repro_torch.kernels.mcop_phase import mcop_phase_packed, phase_result, require_device
 
-__all__ = ["flash_attention", "mamba_chunk_scan"]
+__all__ = ["flash_attention", "mamba_chunk_scan", "mcop_min_cut"]
 
 
 def flash_attention(
@@ -65,3 +69,71 @@ def mamba_chunk_scan(
         h0.to(f32).contiguous(),
     )
     return y.permute(0, 2, 3, 1, 4).reshape(b, s, h, p), h_final
+
+
+def mcop_min_cut(
+    adj: np.ndarray,
+    w_local: np.ndarray,
+    w_cloud: np.ndarray,
+    offloadable: np.ndarray,
+    *,
+    device: str | torch.device = "cuda",
+) -> tuple[float, np.ndarray]:
+    """MCOP with each MinCutPhase on ``device``: one
+    :func:`~repro_torch.kernels.mcop_phase.mcop_phase_kernel` launch per
+    phase.  Returns ``(min_cut, local_mask over the original vertices)``.
+
+    The same loop as the JAX package's ``kernels.ops.mcop_min_cut``: the
+    pinned vertices are folded into the first of them (the anchor; vertex
+    0 if none), then while more than one vertex is alive a phase yields
+    ``(cut, s, t)``, a strictly smaller cut takes ``t``'s members as the
+    cloud side, and ``t`` is merged into ``s`` (the anchor follows a merged
+    source).  The adjacency is uploaded once and merged in place on the
+    device, the pinned fold included, in the reference's order and f32
+    arithmetic (row add, column add, ``adj[s, s] = 0``, row and column
+    ``t`` zeroed); per phase only the gains go up and ``(cut, s, t)`` come
+    back.  ``device="cpu"`` runs the
+    same loop on the plain version; the default needs a GPU and raises
+    ``KernelError`` without one.
+    """
+    dev = require_device(device)
+    w_local = np.array(w_local, np.float32)
+    w_cloud = np.array(w_cloud, np.float32)
+    n = w_local.shape[0]
+    adj_d = torch.from_numpy(np.array(adj, np.float32)).to(dev)
+    alive_d = torch.ones(n, dtype=torch.bool, device=dev)
+    alive = np.ones(n, bool)
+    label = np.arange(n)  # the surviving vertex each original vertex merged into
+    c_total = float(w_local.sum())
+
+    def merge(s: int, t: int) -> None:
+        adj_d[s, :] += adj_d[t, :]
+        adj_d[:, s] += adj_d[:, t]
+        adj_d[s, s] = 0.0
+        adj_d[t, :] = 0.0
+        adj_d[:, t] = 0.0
+        alive_d[t] = False
+        w_local[s] += w_local[t]
+        w_cloud[s] += w_cloud[t]
+        label[label == t] = s
+        alive[t] = False
+
+    # fold the unoffloadable vertices into the anchor
+    pinned = np.nonzero(~np.asarray(offloadable, bool))[0]
+    src = int(pinned[0]) if pinned.size else 0
+    for other in pinned[1:]:
+        merge(src, int(other))
+
+    best_cut, best_cloud = np.inf, np.zeros(n, bool)
+    while alive.sum() > 1:
+        gains = torch.from_numpy(w_local - w_cloud).to(dev)
+        cut, s, t = phase_result(mcop_phase_packed(adj_d, gains, alive_d, src, c_total))
+        if cut < best_cut:
+            best_cut = cut
+            best_cloud = label == t
+        if s == t:  # degenerate single-alive-vertex phase
+            break
+        merge(s, t)
+        if t == src:
+            src = s
+    return best_cut, ~best_cloud

@@ -13,6 +13,9 @@ on, the same function as its kernel (``csrc/flash_attention.cu``,
   over (batch, head), walking the chunks in order.  Same function as the
   JAX package's token recurrence ``ref.mamba_chunk_scan_reference``,
   computed in the chunked form the kernel uses.
+* :func:`mcop_phase_plain` — one MinCutPhase (the paper's Algorithm 3),
+  the plain version of ``csrc/mcop_phase.cu``.  Transcribes the JAX
+  package's ``ref.mcop_phase_reference`` and the Pallas body it checks.
 
 The kernel wrappers take these for CPU tensors; ``chip_smoke.py`` holds
 each kernel against its plain version on the card.
@@ -24,7 +27,9 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_plain", "mamba_chunk_scan_plain"]
+from repro_torch.kernels.mcop_phase import NEG_INF as MCOP_NEG_INF
+
+__all__ = ["NEG_INF", "flash_attention_plain", "mamba_chunk_scan_plain", "mcop_phase_plain"]
 
 NEG_INF = -2.0**30
 _PLAIN_BLOCK_Q = 1024  # query rows scored at a time: bounds memory, not the result
@@ -107,3 +112,38 @@ def mamba_chunk_scan_plain(
                            bm[:, c][:, None] * tail[..., None])      # (B,H,P,N)
         h = h * torch.exp(cc[..., -1])[..., None, None] + s_n
     return y, h
+
+
+def mcop_phase_plain(
+    adj: torch.Tensor,            # (n, n) f32 — current (possibly merged) graph
+    gains: torch.Tensor,          # (n,) f32 — w_local − w_cloud
+    alive: torch.Tensor,          # (n,) bool
+    src: int,                     # anchor vertex
+    c_local_total: float | torch.Tensor,  # C_local of the original graph
+) -> tuple[torch.Tensor, int, int]:
+    """One MinCutPhase in float32; returns ``(cut (), s, t)``.
+
+    Starting from ``A = {src} ∩ alive`` and ``conn = adj[src]``, absorb
+    exactly ``n_alive − 1`` vertices, each the first-index argmax of
+    ``conn − gains`` over the alive vertices not yet in ``A`` (``NEG_INF``
+    elsewhere), adding its row to ``conn``; ``(s, t)`` are the last two
+    absorbed.  The cut is Eq. 10: ``C_local − gains[t] + Σ adj[t]·alive``.
+    With one alive vertex ``s == t == src``."""
+    f32 = torch.float32
+    adj = adj.to(f32)
+    gains = gains.to(f32)
+    alive = alive.to(torch.bool)
+    idx = torch.arange(adj.shape[0], device=adj.device)
+    n_alive = int(alive.sum())
+    in_a = alive & (idx == src)
+    conn = adj[src]
+    s = t = int(src)
+    for _ in range(n_alive - 1):
+        scores = torch.where(alive & ~in_a, conn - gains, MCOP_NEG_INF)
+        v = int(scores.argmax())  # the first maximum wins ties
+        in_a = in_a | (idx == v)
+        conn = conn + adj[v]
+        s, t = t, v
+    comm = (adj[t] * alive.to(f32)).sum()
+    ctot = torch.as_tensor(c_local_total, dtype=f32, device=adj.device)
+    return ctot - gains[t] + comm, s, t

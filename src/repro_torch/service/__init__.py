@@ -21,9 +21,16 @@
                 tests, benchmarks and demos, plus the vectorized
                 :class:`TrafficGenerator` (Poisson arrivals, geometric
                 churn) feeding batched session groups.
-
-The cross-process serving plane of the JAX package (``wire``, ``server``,
-``client``) is not part of this package yet.
+``wire``      — length-prefixed JSON/msgpack frame protocol of the
+                cross-process serving plane (versioned hello, typed
+                error frames, bit-exact float64 round trips); the same
+                bytes as the JAX package's, so either side may be either
+                package.
+``server``    — :class:`SolverServer`: the solver process owning the
+                GPU and the broker, with a write-ahead request journal,
+                background snapshot loop, and journaled warm restart.
+``client``    — :class:`BrokerClient`: sessions over unix/TCP sockets
+                with graceful reconnect and idempotent resubmission.
 """
 
 from repro_torch.service.broker import (
@@ -33,6 +40,7 @@ from repro_torch.service.broker import (
     PlacementFuture,
     TickReport,
 )
+from repro_torch.service.client import BrokerClient, ClientFuture, RemoteBatchGroup
 from repro_torch.service.faults import (
     FAULT_KINDS,
     FAULT_SITES,
@@ -49,7 +57,20 @@ from repro_torch.service.resilience import (
     RetryPolicy,
 )
 from repro_torch.service.scheduler import QueueEntry, WeightedFairScheduler
+from repro_torch.service.server import Journal, SolverServer, tcp_address, unix_address
 from repro_torch.service.session import BatchSessionGroup, BrokerSession
+from repro_torch.service.wire import (
+    PROTOCOL_VERSION,
+    BadFrame,
+    FrameStream,
+    FrameTooLarge,
+    RemoteError,
+    TruncatedFrame,
+    VersionMismatch,
+    WireError,
+    decode_frame,
+    encode_frame,
+)
 from repro_torch.service.workload import (
     DEFAULT_REGIMES,
     Regime,
@@ -83,6 +104,23 @@ __all__ = [
     "WeightedFairScheduler",
     "BrokerSession",
     "BatchSessionGroup",
+    "PROTOCOL_VERSION",
+    "WireError",
+    "BadFrame",
+    "FrameTooLarge",
+    "TruncatedFrame",
+    "VersionMismatch",
+    "RemoteError",
+    "FrameStream",
+    "encode_frame",
+    "decode_frame",
+    "SolverServer",
+    "Journal",
+    "unix_address",
+    "tcp_address",
+    "BrokerClient",
+    "ClientFuture",
+    "RemoteBatchGroup",
     "DEFAULT_REGIMES",
     "Regime",
     "TrafficGenerator",

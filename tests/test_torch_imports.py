@@ -32,6 +32,8 @@ def test_port_has_the_expected_modules():
         "models/transformer.py", "kernels/ref.py", "kernels/ops.py",
         "kernels/flash_attention.py", "kernels/mamba_scan.py", "core/placement.py",
         "profilers/program.py", "serving/engine.py", "launch/serve.py",
+        "service/wire.py", "service/server.py", "service/client.py",
+        "launch/serve_broker.py",
     ):
         assert expected in names
 
@@ -51,11 +53,12 @@ def test_kernel_sources_are_in_the_tree():
     assert (csrc / "sw_common.cuh").is_file()
     assert (csrc / "flash_attention.cu").is_file()
     assert (csrc / "mamba_scan.cu").is_file()
+    assert (csrc / "mcop_phase.cu").is_file()
     from repro_torch.kernels import build
 
     for name in build.KERNEL_SOURCES:
         assert (csrc / f"{name}.cu").is_file()
-    assert {"flash_attention", "mamba_scan"} <= set(build.KERNEL_SOURCES)
+    assert {"flash_attention", "mamba_scan", "mcop_phase"} <= set(build.KERNEL_SOURCES)
 
 
 def test_import_and_cpu_solve_do_not_build_or_load_jax(tmp_path):
@@ -68,7 +71,7 @@ import sys
 import repro_torch.core, repro_torch.kernels, repro_torch.obs, repro_torch.service
 import repro_torch.convert, repro_torch.configs, repro_torch.models.transformer
 import repro_torch.serving, repro_torch.launch.serve, repro_torch.profilers
-import repro_torch.core.placement
+import repro_torch.core.placement, repro_torch.launch.serve_broker
 from repro_torch.kernels import build
 def refuse(*a, **k):
     raise AssertionError("the build was reached on the CPU")
@@ -78,6 +81,8 @@ from repro_torch.core import (mcop_batch, solve_envs, paper_example_graph,
 g = paper_example_graph()
 for backend in ("torch", "cuda"):
     assert mcop_batch([g], backend=backend, device="cpu")[0].min_cut == 22.0
+from repro_torch.kernels import mcop_min_cut
+assert mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable, device="cpu")[0] == 22.0
 p = AppProfile.from_wcg_times(g)
 r = solve_envs(p, ResponseTimeModel(), [Environment.symmetric(1.0, 3.0)],
                backend="cuda_fused", device="cpu")
@@ -117,7 +122,8 @@ def test_default_build_dir_is_inside_the_tree_and_ignored():
 
 ENTRIES = ["mcop_batch", "solve_envs", "mcop", "price_summary",
            "tick_sessions", "controller", "broker", "resilient_broker",
-           "model_init", "model_cache", "engine", "serve_main", "placement_batch"]
+           "model_init", "model_cache", "engine", "serve_main", "placement_batch",
+           "min_cut", "serve_broker_main", "serve_broker_reference"]
 
 _NO_GPU_CODE = """
 import json
@@ -143,6 +149,11 @@ def broker(**kw):
     BrokerSession(b, "app").observe(env)
     b.tick()
 
+import os, tempfile
+from repro_torch.kernels import mcop_min_cut
+from repro_torch.launch.serve_broker import main as serve_broker_main
+sock = os.path.join(tempfile.mkdtemp(), "s.sock")
+
 from repro_torch.configs import get_config, reduce_config, SHAPES
 from repro_torch.core.placement import TPUV5E_TIER, plan_placement_batch
 from repro_torch.launch.serve import main as serve_main
@@ -166,6 +177,11 @@ runs = {
     "price_summary": lambda: T.device_price_summary(
         p, model, [env], np.ones((1, 6), bool)),
     "tick_sessions": tick_sessions,
+    "min_cut": lambda: mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable),
+    "serve_broker_main": lambda: serve_broker_main(["--socket", sock]),
+    # the default device is the GPU whatever the backend: never a silent host run
+    "serve_broker_reference": lambda: serve_broker_main(
+        ["--socket", sock, "--backend", "reference"]),
     "controller": lambda: T.AdaptiveController(p, model, backend="cuda").observe(env),
     "broker": broker,
     "resilient_broker": lambda: broker(
