@@ -18,7 +18,10 @@ one JSON object per line:
 3. ``model_kernel_checks`` — the flash-attention kernel (B4) and the Mamba2
                       scan kernel (B5) against their plain versions at the
                       hybrid model's prefill shapes and at GQA, odd-length
-                      and padded shapes (tolerances stated per shape).
+                      and padded shapes (tolerances stated per shape); each
+                      B4 check launches the variant its dtype and head width
+                      call for (tensor cores: bf16 at hd 64 and 128; CUDA
+                      cores: the rest).
 4. ``solve_plane``  — ``solve_envs`` / ``mcop_batch`` at full size.
 5. ``broker``       — a two-tenant ``OffloadBroker`` tick loop (100 000
                       batched sessions + 256 per-object sessions), one fused
@@ -28,7 +31,8 @@ one JSON object per line:
 6. ``serve``        — zamba2-1.2b at full width in bf16 (random weights from
                       seed 0): the placement report of ``launch/serve.py``,
                       then 8 requests of 4608-8192 prompt tokens through the
-                      ``ServingEngine`` in two waves of 4, 16 new tokens each.
+                      ``ServingEngine`` in two waves of 4, 16 new tokens each;
+                      every B4 launch of a prefill on the tensor-core variant.
 7. ``serve_replay`` — the same engine at reduced width in f32 on the card and
                       on the CPU (plain versions), prompts of 4100-4608 tokens:
                       greedy tokens equal, prefill logits within tolerance.
@@ -51,16 +55,21 @@ one JSON object per line:
 
 Three main paths, each driven with every launch counter set to 0 just before
 it and read just after: phases 4-5 (the broker tick: B1, B2), phase 6
-(serving: B4 19 times and B5 38 times per prefill) and phase 8 (the
-per-phase tier: B3 once per MinCutPhase).  A kernel of a path that was not
+(serving: B4 19 times and B5 38 times per prefill; one B5 call is four
+launches of its passes, counted once) and phase 8 (the per-phase tier: B3
+once per MinCutPhase).  A kernel of a path that was not
 launched there fails the run; the server of phase 9 runs B1 in its own
 process, so the phase fails unless its tick reports show solves.  Then a
 ``kernel_work`` line counts the work of the MCOP kernels' timed shapes
 (absorb steps, row traffic, B3's chain and bound terms; computed from the
-inputs, not measured), a ``{"kernels": [...]}`` line gives, for all five
-kernels, its launches on its main path, its measured time, its plain version's measured time, the
+inputs, not measured) and B3's absorb steps over the per-phase path, with
+its kernel time estimated from them and B3's two timed shapes; a
+``{"kernels": [...]}`` line gives, for all five kernels, its launches on
+its main path, its measured time, its plain version's measured time, the
 time of one PyTorch call computing the same function where there is one,
-and its roofline bound at the main path's shape; the GPU's name and power
+and its roofline bound at the main path's shape (B4 and B5 also their
+achieved TFLOP/s and share of the bound; B5's bound against the TF32 rate
+its products run at, the f32 rate's beside it); the GPU's name and power
 limit; and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero; without a GPU nothing runs.
 
@@ -72,7 +81,7 @@ kernels' scratch-matrix variant only; a value above 768 skips phase 2's
 shapes altogether); ``SMOKE_PROFILE=1`` wraps the timed broker ticks, and
 one more prefill and 8 decode steps of the served model, in
 ``torch.profiler`` and reports the GPU's busy time (by kernel family for
-the model) and idle share.
+the model, and B4's and B5's kernels by name) and idle share.
 """
 
 from __future__ import annotations
@@ -96,6 +105,7 @@ RTOL = 1e-5          # cut tolerance: f32 sums taken in different orders
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense tensor cores
+TF32_FLOP_PER_S = 495e12    # H100 SXM data sheet, dense tensor cores
 SMEM_BYTES_PER_S = 132 * 128 * 1.755e9  # 132 SMs x 128 B/clk x boost clock
 
 DEVICE = "cuda"
@@ -121,15 +131,21 @@ BROKER_PATH_KERNELS = ("mcop_stoer_wagner_kernel", "mcop_fused_solve_kernel")
 # layout).  The first is the hybrid model's prefill (zamba2-1.2b: 32 heads
 # of 64, a 4096-token window, 8192-token prompts, a wave of 4) and gives the
 # kernel's line; then GQA at hd 128, f32 over 4096-key rows, and odd
-# lengths with a window on full attention.  Layout "model": transpose(1, 2)
-# views of (B, S, H, hd) tensors, as chunked_attention hands them over;
-# "heads": contiguous (B, H, S, hd).
+# lengths with a window on full attention, in f32 and on the tensor cores,
+# odd lengths with more keys than queries at hd 128, and a narrow bf16 head.
+# Layout "model": transpose(1, 2) views of (B, S, H, hd) tensors, as
+# chunked_attention hands them over; "heads": contiguous (B, H, S, hd).  The
+# bf16 cases at hd 64 and 128 must run the tensor-core variant, the others
+# the CUDA-core one (expected_flash_variant).
 FLASH_CHECKS = (
     (4, 32, 32, 8192, 8192, 64, True, 4096, "bfloat16", "model"),
     (2, 28, 4, 4096, 4096, 128, True, None, "bfloat16", "model"),
     (1, 32, 32, 4500, 4500, 64, True, 4096, "float32", "heads"),
     (3, 2, 2, 17, 63, 8, False, 16, "float32", "heads"),
     (2, 4, 2, 1000, 1337, 64, False, 300, "float32", "model"),
+    (2, 4, 2, 1000, 1337, 64, False, 300, "bfloat16", "model"),
+    (1, 8, 2, 333, 517, 128, True, 100, "bfloat16", "heads"),
+    (2, 4, 2, 1000, 1337, 32, True, 300, "bfloat16", "model"),
 )
 # (atol, rtol) by dtype.  bf16: both sides round an f32 result to bf16, so
 # they may differ by one bf16 step of the output, at most 2^-7 |o|, plus
@@ -140,6 +156,13 @@ FLASH_CHECKS = (
 # uniform error of 0.0156 fails wherever |o| < 2).  f32: sums in another
 # order.  Each check reports the mean |o| and the tolerance there.
 FLASH_TOL = {"bfloat16": (1e-5, 2.0**-7), "float32": (2e-5, 2e-5)}
+
+
+def expected_flash_variant(dtype: str, hd: int) -> str:
+    """The B4 variant a check of ``dtype`` and ``hd`` must launch."""
+    return "tensor_cores" if dtype == "bfloat16" and hd in (64, 128) else "cuda_cores"
+
+
 # Mamba2 scan checks: (B, S real, S padded, H, P, N, Q, layout).  The hybrid
 # model's prefill (64 heads, 64 x 64 state, chunk 256, a wave of 4 prompts
 # of 8192) gives the kernel's line; then a prompt padded to the chunk as
@@ -899,15 +922,20 @@ def flash_inputs(gen, case):
 
 
 def check_flash(rng, case, *, measure: bool) -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import VARIANT_LAUNCHES, flash_attention_kernel
     from repro_torch.kernels.ref import flash_attention_plain
 
     b, h, hkv, sq, sk, hd, causal, window, dtype, layout = case
     atol, rtol = FLASH_TOL[dtype]
     gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
     q, k, v = flash_inputs(gen, case)
+    variant = expected_flash_variant(dtype, hd)
+    before = dict(VARIANT_LAUNCHES)
     got = flash_attention_kernel(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    ran = {name: VARIANT_LAUNCHES[name] - before[name] for name in VARIANT_LAUNCHES}
+    if ran != {name: int(name == variant) for name in VARIANT_LAUNCHES}:
+        raise AssertionError(f"flash {case}: launched {ran}, expected the {variant} variant")
     want, plain_ms = timed(lambda: flash_attention_plain(q, k, v, causal=causal, window=window))
     want = want.float()
     tol = atol + rtol * want.abs()
@@ -918,6 +946,7 @@ def check_flash(rng, case, *, measure: bool) -> dict:
                              f"{worst} x the tolerance")
     mean_abs = float(want.abs().mean())
     entry = {"name": "flash_attention_kernel", "shape": [b, h, hkv, sq, sk, hd],
+             "variant": variant,
              "causal": causal, "window": window, "dtype": dtype, "layout": layout,
              "atol": atol, "rtol": rtol, "max_abs_err": float(err.max()),
              "max_err_over_tol": worst, "mean_abs_out": mean_abs,
@@ -926,7 +955,8 @@ def check_flash(rng, case, *, measure: bool) -> dict:
     if measure:
         pairs = attention_pairs(sq, sk, causal, window)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        b_ms, b_by = bound(nbytes, 4.0 * hd * pairs * b * h,
+        flops = 4.0 * hd * pairs * b * h
+        b_ms, b_by = bound(nbytes, flops,
                            BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S)
         idx = torch.arange(sq, device=DEVICE)[:, None], torch.arange(sk, device=DEVICE)[None]
         band = torch.ones((sq, sk), dtype=torch.bool, device=DEVICE)
@@ -944,9 +974,10 @@ def check_flash(rng, case, *, measure: bool) -> dict:
         lib_err = float((lib - want).abs().max())
         lib_outside = float(((lib - want).abs() > tol).float().mean())
         del lib
+        ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=causal, window=window),
+                     reps=3)
         entry.update({
-            "ms": cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=causal,
-                                                         window=window), reps=3),
+            "ms": ms, "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": cuda_ms(library, reps=3), "library_max_abs_err": lib_err,
             "library_share_outside_tol": lib_outside, "pairs_per_head": pairs,
@@ -991,16 +1022,17 @@ def check_mamba(rng, case, *, measure: bool) -> dict:
     got = mamba_chunk_scan_kernel(*args)
     torch.cuda.synchronize()
     want, plain_ms = timed(lambda: mamba_chunk_scan_plain(*args))
-    errs = []
+    errs, over = [], []
     for g_t, w_t in zip(got, want):
         err = float((g_t - w_t).abs().max())
         scale = max(1.0, float(w_t.abs().max()))
         if err > MAMBA_RTOL * scale:
             raise AssertionError(f"mamba {case}: kernel vs plain max error {err} at scale {scale}")
         errs.append(err)
+        over.append(err / (MAMBA_RTOL * scale))
     entry = {"name": "mamba_chunk_scan_kernel", "shape": [b, h, nc, q, p, n],
              "real_steps": s_real, "layout": layout, "max_abs_err": max(errs),
-             "y_err": errs[0], "h_err": errs[1]}
+             "y_err": errs[0], "h_err": errs[1], "max_err_over_tol": max(over)}
     if measure:
         pairs = q * (q + 1) // 2
         # C.B^T once per (batch, chunk), since Bm and Cm are shared by every
@@ -1009,10 +1041,14 @@ def check_mamba(rng, case, *, measure: bool) -> dict:
         flops = 2.0 * b * nc * pairs * n + 2.0 * b * h * nc * (pairs * p + 2 * q * p * n)
         nbytes = 4 * (2 * x.numel() + dt.numel() + ld.numel() + bm.numel() + cm.numel()
                       + 2 * h0.numel())
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
-        entry.update({"ms": cuda_ms(lambda: mamba_chunk_scan_kernel(*args), reps=3),
+        # the products run on the tensor cores as TF32 (3xTF32): the bound is
+        # against that unit's rate, the CUDA cores' f32 rate beside it
+        b_ms, b_by = bound(nbytes, flops, TF32_FLOP_PER_S)
+        f32_ms, _ = bound(nbytes, flops, FP32_FLOP_PER_S)
+        ms = cuda_ms(lambda: mamba_chunk_scan_kernel(*args), reps=3)
+        entry.update({"ms": ms, "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
                       "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": None})
+                      "bound_f32_ms": f32_ms, "library_ms": None})
     return entry
 
 
@@ -1095,6 +1131,7 @@ def phase_serve() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.placement import TPUV5E_TIER, plan_placement
+    from repro_torch.kernels.flash_attention import VARIANT_LAUNCHES
     from repro_torch.models.transformer import build_model
     from repro_torch.profilers.program import stage_specs
     from repro_torch.serving import ServingConfig, ServingEngine
@@ -1123,6 +1160,7 @@ def phase_serve() -> dict:
     reset_all_launches()  # ---- this slice's main path starts here ----
     waves = drive_engine(engine, torch.cuda.synchronize)
     launches = all_launches()  # ---- and ends here ----
+    variants = dict(VARIANT_LAUNCHES)
     prefills = len(waves)
     groups = cfg.n_layers // cfg.shared_attn_every
     want = {"flash_attention_kernel": groups * prefills,
@@ -1131,6 +1169,9 @@ def phase_serve() -> dict:
         if launches[name] != count:
             raise AssertionError(f"serve: {name} launched {launches[name]} times, "
                                  f"expected {count} ({prefills} prefills)")
+    if variants != {"tensor_cores": launches["flash_attention_kernel"], "cuda_cores": 0}:
+        raise AssertionError(f"serve: B4 variants {variants}; every prefill launch "
+                             "must take the tensor-core variant")
     done = engine.finished
     if len(done) != SERVE["requests"] or any(len(s.generated) != new for s in done.values()):
         raise AssertionError("serve: not every request got its tokens")
@@ -1150,31 +1191,35 @@ def phase_serve() -> dict:
         "decode_tokens_per_s": sum(w["decode_tokens"] for w in waves) / dec_s,
         "peak_memory_gb": peak_gb,
         "launches": {k: launches[k] for k in want},
+        "flash_variant_launches": variants,
         "launches_per_prefill": {k: launches[k] / prefills for k in want},
         "main_path_launches": launches,
         "profile": profiles,
     }
 
 
-def kernel_time_by_group(prof) -> dict:
-    """Device milliseconds of a profiler window, by kernel family."""
+def kernel_time_by_group(prof) -> tuple[dict, dict]:
+    """Device milliseconds of a profiler window, by kernel family; and the
+    kernels of the B4 and B5 families by name (B4's variants, B5's passes)."""
     groups = {"flash_attention_kernel": 0.0, "mamba_scan_kernel": 0.0,
               "matrix products": 0.0, "other": 0.0}
+    by_name = {}
     for ev in prof.key_averages():
         ms = (getattr(ev, "self_device_time_total", None)
               or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
         if ms <= 0:
             continue
         name = ev.key
-        if "flash_attention_kernel" in name:
-            groups["flash_attention_kernel"] += ms
-        elif "mamba_scan_kernel" in name:
-            groups["mamba_scan_kernel"] += ms
+        family = next((f for f in ("flash_attention_kernel", "mamba_scan_kernel")
+                       if f in name), None)
+        if family:
+            groups[family] += ms
+            by_name[name] = by_name.get(name, 0.0) + ms
         elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet", "sm90_xmma")):
             groups["matrix products"] += ms
         else:
             groups["other"] += ms
-    return groups
+    return groups, by_name
 
 
 def profile_serve_steps(model, params, plen: int, vocab: int) -> dict:
@@ -1201,9 +1246,10 @@ def profile_serve_steps(model, params, plen: int, vocab: int) -> dict:
                         params, logits.argmax(-1, keepdim=True), cache)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        groups = kernel_time_by_group(prof)
+        groups, by_kernel = kernel_time_by_group(prof)
         busy = sum(groups.values())
         out[name] = {"steps": steps, "wall_seconds": wall, "device_busy_ms": groups,
+                     "kernel_family_ms_by_kernel": by_kernel,
                      "device_busy_ms_total": busy,
                      "device_idle_share": 1.0 - busy / 1e3 / wall}
     return out
@@ -1386,9 +1432,13 @@ def phase_min_cut(rng) -> dict:
     local = {paper.names[i] for i in np.nonzero(paper_mask)[0]}
     if paper_cut != 22.0 or local != {"a", "c"}:
         raise AssertionError(f"min_cut: paper example gave {paper_cut} with {local}")
-    # one launch per phase: n_alive - 1 phases after the fold
-    phases = sum(g.n - max(int((~g.offloadable).sum()) - 1, 0) - 1
-                 for g in (paper, *graphs))
+    # one launch per phase: n_alive - 1 phases after the fold; the phase with
+    # k alive vertices absorbs k - 1 of them, so a graph of m alive vertices
+    # costs B3 m (m - 1) / 2 absorb steps in all (counted, not measured)
+    alive0 = [g.n - max(int((~g.offloadable).sum()) - 1, 0) for g in (paper, *graphs)]
+    phases = sum(m - 1 for m in alive0)
+    absorb_steps = sum(m * (m - 1) // 2 for m in alive0)
+    sizes_steps = [(g.n, m * (m - 1) // 2) for g, m in zip((paper, *graphs), alive0)]
     if launches["mcop_phase_kernel"] != phases or any(
             v for k, v in launches.items() if k != "mcop_phase_kernel"):
         raise AssertionError(f"min_cut: launches {launches}, expected {phases} of B3 only")
@@ -1408,7 +1458,8 @@ def phase_min_cut(rng) -> dict:
         "graphs": len(graphs), "sizes": [int(sizes.min()), int(sizes.max())],
         "mean_n": float(sizes.mean()), "mask_differences": differ,
         "max_abs_cut_err": worst, "seconds": path_s, "launches": launches,
-        "phases": phases}
+        "phases": phases, "absorb_steps": absorb_steps}
+    out["absorb_steps_by_n"] = sizes_steps
     out["main_path_launches"] = launches
     if differ:
         emit(out)
@@ -1777,7 +1828,8 @@ def main() -> int:
             "launches": serve["main_path_launches"][name],
             **{k: timed_entry[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "shape")},
+                "shape", "tflops", "bound_share")},
+            **{k: timed_entry[k] for k in ("variant", "bound_f32_ms") if k in timed_entry},
         })
     line = next(t for t in min_cut["timing"] if t["n"] == MIN_CUT["line_n"])
     kernels["kernels"].append({
@@ -1792,6 +1844,23 @@ def main() -> int:
         "other_shapes": [t for t in min_cut["timing"] if t is not line],
     })
     work["mcop_phase_kernel"] = min_cut["work"]
+    # B3's kernel time on the per-phase path, estimated from counts and its
+    # two timed shapes: an absorb step on a graph of n vertices costs the
+    # all-alive launch time over its n - 1 steps, interpolated linearly in n
+    # between the timed n = 64 and n = 256 (held at the ends)
+    (n_a, t_a), (n_b, t_b) = sorted((t["n"], t["ms"]) for t in min_cut["timing"])
+    step_a, step_b = t_a / (n_a - 1), t_b / (n_b - 1)
+
+    def step_ms(n: int) -> float:
+        f = min(max((n - n_a) / (n_b - n_a), 0.0), 1.0)
+        return step_a + f * (step_b - step_a)
+
+    path = min_cut["main_path"]
+    work["mcop_phase_kernel_main_path"] = {
+        "launches": path["phases"], "absorb_steps": path["absorb_steps"],
+        "step_us": {str(n_a): step_a * 1e3, str(n_b): step_b * 1e3},
+        "estimated_kernel_ms": sum(s * step_ms(n) for n, s in min_cut["absorb_steps_by_n"]),
+        "path_ms": path["seconds"] * 1e3}
     for entry in kernels["kernels"]:
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} was launched on no path")

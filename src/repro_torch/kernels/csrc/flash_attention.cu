@@ -5,25 +5,47 @@
 // hd), f32 or bf16, each in any layout whose hd elements of a row are
 // contiguous: the batch, head and row strides are arguments, so the model's
 // (B, S, H, hd) tensors are read and written in place, with no copies.  Query
-// head h reads KV head h / (H / Hkv), never a repeated copy.  A key k is seen by query q iff k < Sk, q < Sq,
-// k <= q (causal) and k > q - window (window), absolute indices, exactly as
-// the Pallas body masks; so K and V need no padding.  Products, the running
-// max m, sum l and accumulator are f32, as in the Pallas body (which casts
-// its tiles to f32 before both products); a row whose keys are all masked
-// ends at 0 / max(l, 1e-30) = 0.  The output is in q's dtype.
+// head h reads KV head h / (H / Hkv), never a repeated copy.  A key k is seen
+// by query q iff k < Sk, q < Sq, k <= q (causal) and k > q - window (window),
+// absolute indices, exactly as the Pallas body masks; so K and V need no
+// padding.  The running max m, sum l and accumulator are f32, as in the
+// Pallas body; a row whose keys are all masked ends at 0 / max(l, 1e-30) = 0.
+// The output is in q's dtype.
 //
 // What bounds it on this card: operations.  At the hybrid model's prefill
 // (hd 64, window 4096) each query row meets up to 4096 keys and every (q, k)
 // pair costs 4 hd flops against 2 hd bytes of K/V read once per query tile,
 // so the work is far above the byte line; the card's bound is its bf16
-// tensor-core rate.  This first version does the products on the CUDA cores
-// in f32 (explicit fmaf), so it sits well above that bound; what its design
-// does: one block per (query tile of 64 rows, head, batch) walks the key
-// tiles in order with Q, K, V staged in shared memory as f32, each thread
-// keeps a 4 x 4 tile of scores and a 4 x hd/16 tile of the accumulator in
-// registers, and key tiles that lie wholly outside the causal/window band
-// are never visited (they would add exactly nothing).  wgmma, TMA and
-// warp specialisation are later work.
+// tensor-core rate, and at hd 64 the pair's one exponential (the SFU's rate)
+// is close behind.  Two variants, chosen by the caller (`variant`, fixed by
+// dtype and hd in kernels/flash_attention.py:flash_variant):
+//
+// * tensor cores (`flash_attention_kernel_tc`, bf16 at hd 64 and 128): one
+//   block of NWG warpgroups (4 warps each) per query tile of 64 NWG rows (NWG
+//   2 at hd 64, 4 at hd 128), each warpgroup owning 64 rows.  Q is staged
+//   once, K and V tiles of 64 keys go through a two-stage shared-memory ring
+//   by cp.async, 16 bytes a thread, so the next tile's load overlaps this
+//   tile's products; the tiles are stored in the 128-byte swizzle, which
+//   wgmma reads without bank conflicts.  Both products run on
+//   `wgmma.mma_async` (m64n64k16): S = Q K^T from shared memory, bf16 with
+//   f32 sums (the products of two bf16 values are exact in f32: the Pallas
+//   body's cast-then-multiply up to the order of the sum); O += P V with P
+//   from registers, where the S accumulator already has the A operand's
+//   layout.  The softmax is exp2 of
+//   the scores scaled by log2(e) scale (one fused multiply-add each), in f32
+//   registers, the row max and sum shared by the four lanes of a row.  P is
+//   split as P_hi = bf16(P) and P_lo = bf16(P - P_hi), both multiplied on
+//   the tensor cores (V is bf16, so exact as an operand): P V is then within
+//   ~2^-16 of the f32 product the Pallas body takes, where bf16(P) alone
+//   (~2^-9) leaves small outputs more than one bf16 step off.  Masks are
+//   applied only on the key tiles the band's edge crosses; tiles wholly
+//   outside it are never visited.  Query tiles are launched heaviest first.
+//   Registers are held to 128 a thread at hd 64 so two blocks share an SM.
+// * CUDA cores (`flash_attention_kernel`, f32, and bf16 at hd 8 to 32): one
+//   block per (query tile of 64 rows, head, batch) walks the key tiles in
+//   order with Q, K, V staged in shared memory as f32; each thread keeps a
+//   4 x 4 tile of scores and a 4 x hd/16 tile of the accumulator in registers;
+//   products in f32 with explicit fmaf, exactly the Pallas body's arithmetic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -221,16 +243,352 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Tensor-core variant: bf16 q, k, v at hd 64 or 128.
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBK = 64;        // keys per tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, asynchronously; zero-filled when !valid
+// (src is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (lo, hi) -> one bf16x2 register, lo in the low half: the A-operand order.
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// Split two f32 values into their bf16 rounding and the bf16 rounding of
+// what that leaves: x = hi + lo to ~2^-16 |x|.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);  // x0 in the low half
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// ---- wgmma (Hopper's warpgroup products) ----
+// Every shared-memory operand is a stack of rows of 64 bf16 (128 bytes) in
+// the 128-byte swizzle: the 16-byte chunk c of row r sits at chunk c ^ (r %
+// 8), in atoms of 8 rows (1024 bytes, 1024-byte aligned).  The descriptor's
+// stride between 8-row groups (SBO) is 1024 bytes; its other stride is not
+// read when the operand's K (K-major) or N (MN-major) is one 64-wide row.
+// Measured on an H100 by tools/torch_kernel_probe.py wgmma-layout: a k step
+// of 16 advances a K-major operand by 32 bytes along its rows and an
+// MN-major one by 2048 bytes (two 8-row groups).
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  const uint32_t a = smem_addr(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x 64) (+)= a (64 x 16, shared, K-major) . b (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_s(float (&d)[32], uint64_t da, uint64_t db,
+                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) += a (64 x 16, registers) . b (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_o(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared memory of the wgmma variant: Q [64 NWG rows][HD], K and V [2
+// stages][kBK][HD], bf16, each as HD / 64 column halves of [rows][64] in
+// the 128-byte swizzle (Q and K K-major for S = Q K^T; V, rows = keys,
+// MN-major for P V).  A swizzled row chunk is one 16-byte cp.async.  1024
+// bytes more than the tiles: the base is rounded up to a 1024-byte boundary.
+template <int HD, int NWG>
+constexpr int smem_bytes() {
+  return (64 * NWG + 4 * kBK) * HD * 2 + 1024;
+}
+
+// rows [row0, row0 + rows) of a [*][HD] bf16 matrix into `dst` as above;
+// rows at or past `limit` are zero-filled.
+template <int HD, int NT>
+__device__ __forceinline__ void load_swizzled(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              long long stride, int row0, int rows,
+                                              int limit) {
+  constexpr int KC = HD / 8;  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < rows * KC; e += NT) {
+    const int r = e / KC, c = e % KC;
+    const bool in = row0 + r < limit;
+    cp_async16(smem_addr(dst + (c >> 3) * rows * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3)),
+               src + (in ? (long long)(row0 + r) * stride + c * 8 : 0), in);
+  }
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int HD, int NWG, int MINB>
+__global__ void __launch_bounds__(128 * NWG, MINB)
+flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ out, int B, int H, int Hkv,
+                          int Sq, int Sk, int causal, int window, float scale_log2,
+                          Strides sd) {
+  constexpr int NT = 128 * NWG;    // threads: NWG warpgroups
+  constexpr int BQ = 64 * NWG;     // query rows per block, 64 per warpgroup
+  constexpr int NO = HD / 8;       // n tiles of O (8 dims each)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // [BQ][HD]
+  __nv_bfloat16* ks = qs + BQ * HD;                                 // [2][kBK][HD]
+  __nv_bfloat16* vs = ks + 2 * kBK * HD;                            // [2][kBK][HD]
+
+  // heaviest query tiles first: the light ones near the causal start fill the tail
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x % (B * H);
+  const int q0 = (nq - 1 - blockIdx.x / (B * H)) * BQ;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const __nv_bfloat16* qg = q + b * sd.q[0] + h * sd.q[1];
+  const __nv_bfloat16* kg = k + b * sd.k[0] + hk * sd.k[1];
+  const __nv_bfloat16* vg = v + b * sd.v[0] + hk * sd.v[1];
+  __nv_bfloat16* og = out + b * sd.o[0] + h * sd.o[1];
+
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row group, column pair
+  const int row_w = wg * 64 + ((threadIdx.x >> 5) & 3) * 16;  // this warp's rows
+
+  // keys this tile's rows can see: [k_lo, k_hi)
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int k_hi = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_lo = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int kt_begin = k_lo / kBK;
+  const int kt_end = k_hi > k_lo ? (k_hi - 1) / kBK + 1 : kt_begin;
+
+  load_swizzled<HD, NT>(qs, qg, sd.q[2], q0, BQ, Sq);
+  if (kt_begin < kt_end) {
+    load_swizzled<HD, NT>(ks, kg, sd.k[2], kt_begin * kBK, kBK, Sk);
+    load_swizzled<HD, NT>(vs, vg, sd.v[2], kt_begin * kBK, kBK, Sk);
+  }
+  cp_async_commit();
+
+  float o[HD / 64][32];  // dims 64 h..64 h + 63: n tile j of them at o[h][4 j..]
+  float m[2], l[2];  // per row half (g, g + 8): running max, this lane's sum
+#pragma unroll
+  for (int h2 = 0; h2 < HD / 64; ++h2)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[h2][i] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+  }
+  const __nv_bfloat16* qw = qs + wg * 64 * 64;  // this warpgroup's 64 rows
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    const int k0 = kt * kBK;
+    if (kt + 1 < kt_end) {  // the next tile's load overlaps this tile's products
+      load_swizzled<HD, NT>(ks + (stage ^ 1) * kBK * HD, kg, sd.k[2], k0 + kBK, kBK, Sk);
+      load_swizzled<HD, NT>(vs + (stage ^ 1) * kBK * HD, vg, sd.v[2], k0 + kBK, kBK, Sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: Q and this tile are in
+    fence_proxy_async();  // cp.async wrote them; wgmma reads them
+    __syncthreads();
+    const __nv_bfloat16* kst = ks + stage * kBK * HD;
+    const __nv_bfloat16* vst = vs + stage * kBK * HD;
+
+    // S = Q K^T: s[4 j + e] holds rows (g, g + 8) x keys k0 + 8 j + 2 t4 + {0, 1}
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_s(s, wg_desc(qw + (kk >> 2) * BQ * 64 + (kk & 3) * 16),
+              wg_desc(kst + (kk >> 2) * kBK * 64 + (kk & 3) * 16), kk);
+    wg_commit();
+    wg_wait_all();
+
+    // mask (only where the band's edge crosses this tile), online softmax.
+    // The row max is taken on the raw scores and scaled once (rounding is
+    // monotonic, so it is the max of the scaled scores); p = exp2(s scale_log2
+    // - m) is one fused multiply-add and one exp2.  Masked scores are exactly
+    // kNegInf, and only an edge tile has them.
+    const bool edge = k0 + kBK > Sk || q0 + BQ > Sq ||
+                      (causal && k0 + kBK - 1 > q0) ||
+                      (window >= 0 && k0 <= q0 + BQ - 1 - window);
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int qp = q0 + row_w + g + 8 * ((e >> 1) & 1);
+        const int kp = k0 + 8 * (e >> 2) + 2 * t4 + (e & 1);
+        const bool ok = kp < Sk && qp < Sq && (!causal || kp <= qp) &&
+                        (window < 0 || kp > qp - window);
+        s[e] = ok ? s[e] : kNegInf;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      const float corr = ex2(m[r] - m_new);
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float x = s[4 * j + 2 * r + c];
+          float p = ex2(fmaf(x, scale_log2, -m_new));
+          if (edge) p = x == kNegInf ? 0.f : p;
+          s[4 * j + 2 * r + c] = p;
+          sum += p;
+        }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int h2 = 0; h2 < HD / 64; ++h2)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[h2][4 * j + 2 * r] *= corr;
+          o[h2][4 * j + 2 * r + 1] *= corr;
+        }
+    }
+
+    // O += P V with P = P_hi + P_lo; the S accumulators of key tiles 2 kk and
+    // 2 kk + 1 are, element for element, the A fragment of keys 16 kk..16 kk + 15
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      split_pair(s[8 * kk], s[8 * kk + 1], ph[kk][0], pl[kk][0]);
+      split_pair(s[8 * kk + 2], s[8 * kk + 3], ph[kk][1], pl[kk][1]);
+      split_pair(s[8 * kk + 4], s[8 * kk + 5], ph[kk][2], pl[kk][2]);
+      split_pair(s[8 * kk + 6], s[8 * kk + 7], ph[kk][3], pl[kk][3]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h2 = 0; h2 < HD / 64; ++h2) {
+        const uint64_t dv = wg_desc(vst + h2 * kBK * 64 + kk * 16 * 64);
+        wgmma_o(o[h2], pl[kk], dv);
+        wgmma_o(o[h2], ph[kk], dv);
+      }
+    wg_commit();
+    wg_wait_all();
+    __syncthreads();  // this stage is free for the load the next step issues
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int qp = q0 + row_w + g + 8 * r;
+    if (qp >= Sq) continue;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    __nv_bfloat16* orow = og + qp * sd.o[2];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const float* oj = o[j >> 3] + 4 * (j & 7) + 2 * r;
+      const uint32_t pair = pack_bf16(__float2bfloat16_rn(oj[0] * inv),
+                                      __float2bfloat16_rn(oj[1] * inv));
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) = pair;
+    }
+  }
+}
+
+template <int HD, int NWG, int MINB>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
+                   int H, int Hkv, int Sq, int Sk, int causal, int window, float scale,
+                   const Strides& sd, cudaStream_t st) {
+  constexpr int smem = smem_bytes<HD, NWG>();
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel_tc<HD, NWG, MINB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((Sq + 64 * NWG - 1) / (64 * NWG)) * B * H;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attention_kernel_tc<HD, NWG, MINB><<<(unsigned)blocks, 128 * NWG, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), B, H, Hkv,
+      Sq, Sk, causal, window, scale * 1.4426950408889634f, sd);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  window < 0 means no window.  strides:
-// 12 element strides, (batch, head, row) of q, k, v and out in that order.
-// Returns the CUDA error of the launch (0 on success); runs on `stream`.
+// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = CUDA cores, 1 = tensor
+// cores (bf16 at hd 64 or 128 only; rows 16-byte aligned).  window < 0 means
+// no window.  strides: 12 element strides, (batch, head, row) of q, k, v and
+// out in that order.  Returns the CUDA error of the launch (0 on success);
+// runs on `stream`.
 extern "C" int repro_torch_flash_attention(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int H, int Hkv, int Sq, int Sk,
                                            int hd, int causal, int window,
-                                           float scale, int dtype,
+                                           float scale, int dtype, int variant,
                                            const long long* strides,
                                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -241,6 +599,19 @@ extern "C" int repro_torch_flash_attention(const void* q, const void* k,
     sd.k[i] = strides[3 + i];
     sd.v[i] = strides[6 + i];
     sd.o[i] = strides[9 + i];
+  }
+  if (variant == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    switch (hd) {
+      case 64:
+        return (int)repro_torch::tc::launch<64, 2, 2>(q, k, v, out, B, H, Hkv, Sq, Sk,
+                                                      causal, window, scale, sd, st);
+      case 128:
+        return (int)repro_torch::tc::launch<128, 4, 1>(q, k, v, out, B, H, Hkv, Sq, Sk,
+                                                       causal, window, scale, sd, st);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   cudaError_t err =
       dtype == 0

@@ -1,4 +1,4 @@
-// Mamba2 SSD chunked scan for Hopper.
+// Mamba2 SSD chunked scan for Hopper, as chunk-parallel passes.
 //
 // Replaces the TPU kernel `mamba_chunk_scan_kernel` (`_ssd_body`) of the JAX
 // package's kernels/mamba_scan.py.  Inputs, all f32: x (B, H, NC, Q, P),
@@ -13,52 +13,47 @@
 // where h is the state entering the chunk, and only then
 //   h <- h exp(cum_end) + sum_s x_s (x) B_s exp(cum_end - cum_s) dt_s.
 //
-// What bounds it on this card: operations.  Per (batch, head) and chunk of
-// Q = 256 steps with P = N = 64 the scan does ~6 M multiply-adds (the two
-// triangular Q x Q products, the C h^T read-out and the state update) on
-// 100 KB of input, far above the byte line at the f32 rate.  Its design: one
-// block per (batch, head) walks the chunks in order and keeps the P x N
-// state in shared memory across them, as the Pallas body keeps it in VMEM
-// scratch.  The Pallas body holds the whole Q x Q score and gate matrices
-// (256 KB in f32 at Q = 256, over the 227 KB a block may use); here t and s
-// are tiled 64 x 64, tiles above the diagonal are never visited, and the
-// decay exp(cum_t - cum_s) is taken only where s <= t (where it is <= 0,
-// since ld < 0) instead of over the whole matrix.  Each thread keeps a 4 x 4
-// tile of the output (or of the new state) in registers; the products run on
-// the CUDA cores in f32 with explicit fmaf.  Tensor-core products are later
-// work.
+// What bounds it on this card: at the hybrid model's prefill (B 4, 64 heads,
+// 32 chunks of 256, P = N = 64) the scan does ~69 GFLOP on ~1.1 GB of inputs
+// and outputs (x and y, 0.54 GB each), so with its products on the tensor
+// cores (TF32, 495 TFLOP/s) it is bound by bytes; on the CUDA cores (67
+// TFLOP/s f32) it would be bound by operations.
+//
+// The TPU body walks the chunks of one (batch, head) in order on its
+// sequential grid, with the state in VMEM.  Here the chunks are independent
+// work for 132 SMs, in four launches on one stream (the wrapper counts one
+// call):
+//   1. gram:   G = C B^T, every lower-triangular 64 x 64 tile once per
+//              (batch, chunk), into scratch (33.5 MB at the prefill shape,
+//              read back from L2 by all 64 heads);
+//   2. states: per (batch, chunk, head) the chunk's own contribution
+//              S_c = sum_s x_s (x) B_s exp(cum_end - cum_s) dt_s, and cum_end;
+//   3. carry:  per (batch, head) and state element, in chunk order,
+//              h_c = h_{c-1} exp(cum_end, c-1) + S_{c-1} from h0, written over
+//              S in place (the state entering each chunk), and the final state;
+//   4. output: per (batch, chunk, head), y = (G o exp(cum_t - cum_s)[s <= t]
+//              dt_s) x + exp(cum_t) C h_c^T.
+// Every product runs on the tensor cores as 3xTF32 (`mma.sync.m16n8k8`):
+// each f32 operand a is split into a_hi (its top 10 mantissa bits) and a_lo
+// (the top 10 bits of what is left), and a b ~= a_hi b_hi + a_hi b_lo +
+// a_lo b_hi with f32 sums, within ~2^-19 of the f32 product; one TF32
+// product (~2^-11) would not meet the 1e-4 the scan is held to.  Tiles are
+// staged in shared memory by cp.async (16 bytes a thread where rows are
+// 16-byte aligned, else 4), in rows padded so fragment reads never share a
+// bank; the decay exp(cum_t - cum_s) is taken only where s <= t.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro_torch {
 
-constexpr int kT = 64;           // rows of an output tile (t) and of an s tile
-constexpr int kLd = kT + 1;      // padded row length of the staged tiles
-constexpr int kScanThreads = 256;
-constexpr int kMaxQ = kScanThreads;  // one thread per step for the cumsum
-constexpr int kMaxPN = kT;           // P and N each fit one tile
-
-__device__ __forceinline__ float block_inclusive_scan(float v, float* warp_tot) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float n = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += n;
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < kScanThreads / 32 ? warp_tot[lane] : 0.f;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float n = __shfl_up_sync(0xffffffffu, t, off);
-      if (lane >= off) t += n;
-    }
-    if (lane < kScanThreads / 32) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  return warp > 0 ? v + warp_tot[warp - 1] : v;
-}
+constexpr int kMaxQ = 256;     // steps of a chunk
+constexpr int kMaxPN = 64;     // P and N are zero-padded to this
+constexpr int kTile = 64;      // gram tiles and states s tiles
+constexpr int kLd = kMaxPN + 4;   // row of a [.][P or N] tile read as A rows
+constexpr int kLdT = kMaxPN + 8;  // row of a tile read down its columns
+constexpr int kGemmThreads = 128; // gram, states: 4 warps
+constexpr int kOutThreads = 256;  // output: 8 warps, two m16 row tiles each
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Element strides: (batch, head, chunk, step) of x, dt, ld and y;
 // (batch, chunk, step) of Bm and Cm.
@@ -66,228 +61,507 @@ struct ScanStrides {
   long long x[4], dt[4], ld[4], bm[3], cm[3], y[4];
 };
 
-__global__ void __launch_bounds__(kScanThreads)
-mamba_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ ld, const float* __restrict__ bm,
-                  const float* __restrict__ cm, const float* __restrict__ h0,
-                  float* __restrict__ y, float* __restrict__ h_out, int H,
-                  int NC, int Q, int P, int N, ScanStrides sd) {
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows x kMaxPN floats into shared rows of `ld` floats: row r from
+// src + r * stride, `cols` valid columns; rows at or past `valid_rows` and
+// columns at or past `cols` are zero-filled.  All `nthreads` threads take part.
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
+                                          long long stride, int rows, int valid_rows,
+                                          int cols, bool vec4, int nthreads) {
+  if (vec4) {
+    constexpr int kChunks = kMaxPN / 4;
+    for (int e = threadIdx.x; e < rows * kChunks; e += nthreads) {
+      const int r = e / kChunks, c = 4 * (e % kChunks);
+      const bool in = r < valid_rows && c < cols;
+      cp_async16(smem_addr(dst + r * ld + c), src + (in ? r * stride + c : 0), in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * kMaxPN; e += nthreads) {
+      const int r = e / kMaxPN, c = e % kMaxPN;
+      const bool in = r < valid_rows && c < cols;
+      cp_async4(smem_addr(dst + r * ld + c), src + (in ? r * stride + c : 0), in);
+    }
+  }
+}
+
+// 2^x by the SFU (relative error ~2^-22; results below 2^-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a = hi + lo, each with the low 13 of its 23 mantissa bits clear (TF32):
+// hi holds a's top 10 bits, lo the top 10 of what is left.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of one k step for NJ n tiles of 8, split: b[j] = {hi b0, hi b1,
+// lo b0, lo b1}.
+template <int NJ>
+struct BSplit {
+  uint32_t v[NJ][4];
+};
+
+// acc[j] += a . b[j] for j < NJ with a (16 x 8) and b[j] (8 x 8) given
+// split: all a_lo b_hi products, then all a_hi b_lo, then all a_hi b_hi, so
+// that no product waits on the one before it (each j is a chain of three).
+template <int NJ>
+__device__ __forceinline__ void mma_3xtf32_row(float (&acc)[NJ][4], const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4], const BSplit<NJ>& b) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_tf32(acc[j], al, b.v[j][0], b.v[j][1]);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_tf32(acc[j], ah, b.v[j][2], b.v[j][3]);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) mma_tf32(acc[j], ah, b.v[j][0], b.v[j][1]);
+}
+
+// Inclusive cumsum of a chunk's Q log decays (ld[t] at ldc[t * st]) into
+// cum[0..Q); cum[Q..Qpad) = cum[Q - 1].  Run by one whole warp: lane l sums
+// steps 8 l..8 l + 7 in order, then the lanes' totals are scanned.  Every
+// pass computes cum with this one function, so they agree bit for bit.
+__device__ __forceinline__ void chunk_cumsum(const float* ldc, long long st, int Q,
+                                             int Qpad, float* cum) {
+  const int lane = threadIdx.x & 31;
+  float v[8];
+  float run = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = 8 * lane + i;
+    run += t < Q ? ldc[t * st] : 0.f;
+    v[i] = run;
+  }
+  float pre = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float n = __shfl_up_sync(0xffffffffu, pre, off);
+    if (lane >= off) pre += n;
+  }
+  pre = __shfl_up_sync(0xffffffffu, pre, 1);  // exclusive: the lanes before this one
+  if (lane == 0) pre = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int t = 8 * lane + i;
+    if (t < Q) cum[t] = v[i] + pre;
+  }
+  __syncwarp();
+  for (int t = Q + lane; t < Qpad; t += 32) cum[t] = cum[Q - 1];
+}
+
+// ---- 1. gram: G[b, c] = C B^T, lower-triangular 64 x 64 tiles -------------
+// grid (tiles, B NC); G is (B NC, Qg, Qg) with Qg = Q rounded up to 64.
+__global__ void __launch_bounds__(kGemmThreads)
+mamba_scan_kernel_gram(const float* __restrict__ bm, const float* __restrict__ cm,
+                       float* __restrict__ gram, int NC, int Q, int N, int Qg,
+                       int vec4, ScanStrides sd) {
+  __shared__ __align__(16) float cs[kTile * kLd];
+  __shared__ __align__(16) float bs[kTile * kLd];
+  int ti = 0, si = blockIdx.x;  // the blockIdx.x-th tile of the lower triangle
+  while (si > ti) si -= ++ti;
+  const int b = blockIdx.y / NC, c = blockIdx.y % NC;
+  const int t0 = ti * kTile, s0 = si * kTile;
+  load_tile(cs, kLd, cm + b * sd.cm[0] + c * sd.cm[1] + t0 * sd.cm[2], sd.cm[2], kTile,
+            Q - t0, N, vec4, kGemmThreads);
+  load_tile(bs, kLd, bm + b * sd.bm[0] + c * sd.bm[1] + s0 * sd.bm[2], sd.bm[2], kTile,
+            Q - s0, N, vec4, kGemmThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  float acc[8][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kMaxPN / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    const float* a = cs + (r0 + g) * kLd + 8 * kk + t;
+    split_tf32(a[0], ah[0], al[0]);
+    split_tf32(a[8 * kLd], ah[1], al[1]);
+    split_tf32(a[4], ah[2], al[2]);
+    split_tf32(a[8 * kLd + 4], ah[3], al[3]);
+    BSplit<8> bf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float* bp = bs + (8 * j + g) * kLd + 8 * kk + t;
+      split_tf32(bp[0], bf.v[j][0], bf.v[j][2]);
+      split_tf32(bp[4], bf.v[j][1], bf.v[j][3]);
+    }
+    mma_3xtf32_row(acc, ah, al, bf);
+  }
+  float* gt = gram + ((long long)blockIdx.y * Qg + t0 + r0 + g) * Qg + s0 + 2 * t;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<float2*>(gt + 8 * j) = make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(gt + 8 * Qg + 8 * j) = make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
+// ---- 2. states: S_c = x~^T Bm, x~_s = x_s exp(cum_end - cum_s) dt_s --------
+// grid (B NC H): block (b, c, h), warp w owns state rows p = 16 w..16 w + 15;
+// the chunk's steps go through a two-stage ring of 64-step tiles.
+__global__ void __launch_bounds__(kGemmThreads)
+mamba_scan_kernel_states(const float* __restrict__ x, const float* __restrict__ dt,
+                         const float* __restrict__ ld, const float* __restrict__ bm,
+                         float* __restrict__ states, float* __restrict__ cum_end,
+                         int H, int NC, int Q, int P, int N, int vec4, ScanStrides sd) {
   extern __shared__ __align__(16) float smem[];
-  float* hs = smem;              // [P][kLd]   state h[p][n]
-  float* cs = hs + kT * kLd;     // [kT][kLd]  C rows of the t tile
-  float* bs = cs + kT * kLd;     // [kT][kLd]  B rows of the s tile
-  float* xs = bs + kT * kLd;     // [kT][kLd]  x rows of the s tile
-  float* ws = xs + kT * kLd;     // [kT][kLd]  W[t][s] of the tile pair
-  float* cum = ws + kT * kLd;    // [kMaxQ]
-  float* dts = cum + kMaxQ;      // [kMaxQ]
-  float* warp_tot = dts + kMaxQ; // [kScanThreads / 32]
+  float* xs = smem;                       // [2][kTile][kLdT]
+  float* bs = xs + 2 * kTile * kLdT;      // [2][kTile][kLdT]
+  float* cum = bs + 2 * kTile * kLdT;     // [kMaxQ]
+  float* tail = cum + kMaxQ;              // [kMaxQ]
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int b = blockIdx.x / H, hh = blockIdx.x % H;
-  const size_t bh = (size_t)b * H + hh;  // into h0 and h_out
-  const float* xbh = x + b * sd.x[0] + hh * sd.x[1];
-  const float* dtbh = dt + b * sd.dt[0] + hh * sd.dt[1];
-  const float* ldbh = ld + b * sd.ld[0] + hh * sd.ld[1];
-  float* ybh = y + b * sd.y[0] + hh * sd.y[1];
+  const int h = blockIdx.x % H, bc = blockIdx.x / H;
+  const int b = bc / NC, c = bc % NC;
+  const float* xc = x + b * sd.x[0] + h * sd.x[1] + c * sd.x[2];
+  const float* bc_ = bm + b * sd.bm[0] + c * sd.bm[1];
+  const int n_tiles = (Q + kTile - 1) / kTile;
+  auto load_stage = [&](int st, int stage) {
+    const int s0 = st * kTile;
+    load_tile(xs + stage * kTile * kLdT, kLdT, xc + s0 * sd.x[3], sd.x[3], kTile, Q - s0,
+              P, vec4, kGemmThreads);
+    load_tile(bs + stage * kTile * kLdT, kLdT, bc_ + s0 * sd.bm[2], sd.bm[2], kTile, Q - s0,
+              N, vec4, kGemmThreads);
+  };
+  load_stage(0, 0);
+  cp_async_commit();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0)
+    chunk_cumsum(ld + b * sd.ld[0] + h * sd.ld[1] + c * sd.ld[2], sd.ld[3], Q,
+                 n_tiles * kTile, cum);
+  __syncthreads();
+  const float ce = cum[Q - 1];
+  const float* dtc = dt + b * sd.dt[0] + h * sd.dt[1] + c * sd.dt[2];
+  for (int s = threadIdx.x; s < n_tiles * kTile; s += kGemmThreads)
+    tail[s] = s < Q ? expf(ce - cum[s]) * dtc[s * sd.dt[3]] : 0.f;
+  if (threadIdx.x == 0) cum_end[blockIdx.x] = ce;  // (b, c, h) order: see carry
 
-  for (int e = tid; e < P * N; e += kScanThreads)
-    hs[(e / N) * kLd + e % N] = h0[bh * P * N + e];
-
-  const int n_tiles = (Q + kT - 1) / kT;
-  for (int c = 0; c < NC; ++c) {
-    // this chunk's rows: step t of x at xc[t * sd.x[3]], and so on
-    const float* xc = xbh + c * sd.x[2];
-    const float* bc = bm + b * sd.bm[0] + c * sd.bm[1];
-    const float* cc = cm + b * sd.cm[0] + c * sd.cm[1];
-    float* yc = ybh + c * sd.y[2];
-
-    __syncthreads();  // the previous chunk is done with cum, dts and the tiles
-    const float ldv = tid < Q ? ldbh[c * sd.ld[2] + tid * sd.ld[3]] : 0.f;
-    if (tid < Q) dts[tid] = dtbh[c * sd.dt[2] + tid * sd.dt[3]];
-    const float cv = block_inclusive_scan(ldv, warp_tot);
-    if (tid < Q) cum[tid] = cv;
-    __syncthreads();
-
-    for (int tt = 0; tt < n_tiles; ++tt) {
-      const int t0 = tt * kT, tn = min(kT, Q - t0);
-      __syncthreads();  // the previous t tile's C rows are no longer read
-      for (int e = tid; e < kT * N; e += kScanThreads) {
-        const int r = e / N, n = e % N;
-        cs[r * kLd + n] = r < tn ? cc[(t0 + r) * sd.cm[2] + n] : 0.f;
-      }
-      __syncthreads();
-
-      // inter-chunk read-out with the state entering the chunk:
-      // acc[t = ty + 16 i][p = tx + 16 j] = exp(cum_t) * sum_n C[t][n] h[p][n]
-      float acc[4][4];
+  const int g = lane >> 2, t = lane & 3;
+  const int p0 = 16 * warp;
+  float acc[8][4] = {};
+  for (int st = 0; st < n_tiles; ++st) {
+    if (st + 1 < n_tiles) load_stage(st + 1, (st + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this stage's tiles, and tail, are in
+    if (p0 < P) {
+      const float* xt = xs + (st & 1) * kTile * kLdT;
+      const float* bt = bs + (st & 1) * kTile * kLdT;
+      const float* tl = tail + st * kTile;
+#pragma unroll 2
+      for (int kk = 0; kk < kTile / 8; ++kk) {
+        // A[p][s] = x~[s][p]: rows p0 + g (+8), columns s = 8 kk + t (+4)
+        const int s = 8 * kk + t;
+        const float w0 = tl[s], w1 = tl[s + 4];
+        uint32_t ah[4], al[4];
+        split_tf32(xt[s * kLdT + p0 + g] * w0, ah[0], al[0]);
+        split_tf32(xt[s * kLdT + p0 + g + 8] * w0, ah[1], al[1]);
+        split_tf32(xt[(s + 4) * kLdT + p0 + g] * w1, ah[2], al[2]);
+        split_tf32(xt[(s + 4) * kLdT + p0 + g + 8] * w1, ah[3], al[3]);
+        BSplit<8> bf;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv4[4], hv4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv4[i] = cs[(ty + 16 * i) * kLd + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) hv4[j] = (tx + 16 * j) < P ? hs[(tx + 16 * j) * kLd + n] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cv4[i], hv4[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        const float g = t < tn ? expf(cum[t0 + t]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= g;
-      }
-
-      // intra-chunk term over the s tiles at or below the diagonal
-      for (int st = 0; st <= tt; ++st) {
-        const int s0 = st * kT, sn = min(kT, Q - s0);
-        __syncthreads();  // the previous s tile's B, x and W are no longer read
-        for (int e = tid; e < kT * N; e += kScanThreads) {
-          const int r = e / N, n = e % N;
-          bs[r * kLd + n] = r < sn ? bc[(s0 + r) * sd.bm[2] + n] : 0.f;
+        for (int j = 0; j < 8; ++j) {
+          split_tf32(bt[s * kLdT + 8 * j + g], bf.v[j][0], bf.v[j][2]);
+          split_tf32(bt[(s + 4) * kLdT + 8 * j + g], bf.v[j][1], bf.v[j][3]);
         }
-        for (int e = tid; e < kT * P; e += kScanThreads) {
-          const int r = e / P, p = e % P;
-          xs[r * kLd + p] = r < sn ? xc[(s0 + r) * sd.x[3] + p] : 0.f;
-        }
-        __syncthreads();
-        // W[t][s] = (C_t . B_s) exp(cum_t - cum_s) dt_s for s <= t, else 0
-        float w[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) w[i][j] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cv4[4], bv4[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv4[i] = cs[(ty + 16 * i) * kLd + n];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv4[j] = bs[(tx + 16 * j) * kLd + n];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) w[i][j] = fmaf(cv4[i], bv4[j], w[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int t = t0 + ty + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = s0 + tx + 16 * j;
-            const bool live = s <= t && t < t0 + tn && s < s0 + sn;
-            ws[(ty + 16 * i) * kLd + tx + 16 * j] =
-                live ? w[i][j] * expf(cum[t] - cum[s]) * dts[s] : 0.f;
-          }
-        }
-        __syncthreads();
-        // acc[t][p] += sum_s W[t][s] x[s][p]
-        for (int s = 0; s < sn; ++s) {
-          float wv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) wv[i] = ws[(ty + 16 * i) * kLd + s];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xv[j] = xs[s * kLd + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = ty + 16 * i;
-        if (t >= tn) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tx + 16 * j;
-          if (p < P) yc[(t0 + t) * sd.y[3] + p] = acc[i][j];
-        }
+        mma_3xtf32_row(acc, ah, al, bf);
       }
     }
-
-    // state update, after every read of the entering state:
-    // h[p = ty + 16 i][n = tx + 16 j] = h exp(cum_end) + sum_s x[s][p] B[s][n] tail_s
-    const float cum_end = cum[Q - 1];
-    const float decay = expf(cum_end);
-    float hn[4][4];
+    __syncthreads();  // this stage is free for the load the next step issues
+  }
+  cp_async_wait<0>();
+  if (p0 >= P) return;
+  // states (B, H, NC, P, N), contiguous
+  float* sc = states + (((long long)b * H + h) * NC + c) * P * N;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = ty + 16 * i, n = tx + 16 * j;
-        hn[i][j] = (p < P && n < N) ? hs[p * kLd + n] * decay : 0.f;
-      }
-    for (int st = 0; st < n_tiles; ++st) {
-      const int s0 = st * kT, sn = min(kT, Q - s0);
-      __syncthreads();
-      for (int e = tid; e < kT * N; e += kScanThreads) {
-        const int r = e / N, n = e % N;
-        bs[r * kLd + n] = r < sn ? bc[(s0 + r) * sd.bm[2] + n] *
-                                       (expf(cum_end - cum[s0 + r]) * dts[s0 + r])
-                                 : 0.f;
-      }
-      for (int e = tid; e < kT * P; e += kScanThreads) {
-        const int r = e / P, p = e % P;
-        xs[r * kLd + p] = r < sn ? xc[(s0 + r) * sd.x[3] + p] : 0.f;
-      }
-      __syncthreads();
-      for (int s = 0; s < sn; ++s) {
-        float xv[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[s * kLd + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = bs[s * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) hn[i][j] = fmaf(xv[i], bv[j], hn[i][j]);
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + g + 8 * (e >> 1), n = 8 * j + 2 * t + (e & 1);
+      if (p < P && n < N) sc[p * N + n] = acc[j][e];
     }
-    __syncthreads();  // every thread has read the entering state
+}
+
+// ---- 3. carry: the state entering each chunk, in chunk order ---------------
+// One thread per (b, h, state element); states[b, h, c] is S_c on entry and
+// the state entering chunk c on exit.  Eight chunks' S and cum_end are loaded
+// before any is written back, so the loads overlap.
+__global__ void __launch_bounds__(256)
+mamba_scan_kernel_carry(float* __restrict__ states, const float* __restrict__ cum_end,
+                        const float* __restrict__ h0, float* __restrict__ h_out, int H,
+                        int NC, int PN, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long bh = i / PN;
+  const int e = static_cast<int>(i % PN);
+  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
+  float hv = h0[i];
+  float* sp = states + bh * NC * PN + e;
+  const float* ce = cum_end + (long long)b * NC * H + h;  // chunk c at ce[c * H]
+  for (int c0 = 0; c0 < NC; c0 += 8) {
+    float s[8], d[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int u = 0; u < 8; ++u) {
+      const bool in = c0 + u < NC;
+      s[u] = in ? sp[(long long)(c0 + u) * PN] : 0.f;
+      d[u] = in ? ce[(long long)(c0 + u) * H] : 0.f;
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = ty + 16 * i, n = tx + 16 * j;
-        if (p < P && n < N) hs[p * kLd + n] = hn[i][j];
+    for (int u = 0; u < 8; ++u)
+      if (c0 + u < NC) {
+        sp[(long long)(c0 + u) * PN] = hv;
+        hv = hv * expf(d[u]) + s[u];
       }
   }
+  h_out[i] = hv;
+}
 
+// ---- 4. output --------------------------------------------------------------
+// grid (B NC H): block (b, c, h); warp w owns m16 row tiles w and 15 - w (a
+// balanced share of the triangle) and works on both at once, so every x
+// fragment it splits serves two products.  x, C and the entering state are
+// staged whole; G comes from the gram pass's scratch (L2), two steps ahead.
+__global__ void __launch_bounds__(kOutThreads)
+mamba_scan_kernel_output(const float* __restrict__ x, const float* __restrict__ dt,
+                         const float* __restrict__ ld, const float* __restrict__ cm,
+                         const float* __restrict__ gram, const float* __restrict__ states,
+                         float* __restrict__ y, int H, int NC, int Q, int P, int N, int Qg,
+                         int vec4, ScanStrides sd) {
+  extern __shared__ __align__(16) float smem[];
+  const int q16 = (Q + 15) / 16 * 16;
+  float* xs = smem;                // [q16][kLd]  x[s][p]
+  float* cs = xs + q16 * kLd;      // [q16][kLd]  C[t][n]
+  float* hs = cs + q16 * kLd;      // [kMaxPN][kLd]  h[p][n], entering the chunk
+  float* cum = hs + kMaxPN * kLd;  // [q16]
+  float* dts = cum + q16;          // [q16]
+
+  const int h = blockIdx.x % H, bc = blockIdx.x / H;
+  const int b = bc / NC, c = bc % NC;
+  const float* xc = x + b * sd.x[0] + h * sd.x[1] + c * sd.x[2];
+  load_tile(xs, kLd, xc, sd.x[3], q16, Q, P, vec4, kOutThreads);
+  load_tile(cs, kLd, cm + b * sd.cm[0] + c * sd.cm[1], sd.cm[2], q16, Q, N, vec4,
+            kOutThreads);
+  load_tile(hs, kLd, states + (((long long)b * H + h) * NC + c) * P * N, N, kMaxPN, P, N,
+            vec4 && N % 4 == 0, kOutThreads);
+  cp_async_commit();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == 0)
+    chunk_cumsum(ld + b * sd.ld[0] + h * sd.ld[1] + c * sd.ld[2], sd.ld[3], Q, q16, cum);
+  const float* dtc = dt + b * sd.dt[0] + h * sd.dt[1] + c * sd.dt[2];
+  for (int s = threadIdx.x; s < q16; s += kOutThreads)
+    dts[s] = s < Q ? dtc[s * sd.dt[3]] : 0.f;
+  cp_async_wait<0>();
   __syncthreads();
-  for (int e = tid; e < P * N; e += kScanThreads)
-    h_out[bh * P * N + e] = hs[(e / N) * kLd + e % N];
+
+  const int g = lane >> 2, t = lane & 3;
+  const int mts = q16 / 16;
+  // this warp's row tiles: m = 0 the smaller (rows 16 w..), m = 1 the larger
+  // (rows 16 (15 - w)..); a tile past the chunk's rows is idle
+  const int r0[2] = {16 * warp, 16 * (15 - warp)};
+  const bool live[2] = {warp < mts, 15 - warp < mts};
+  if (!live[0]) return;
+  const int s_end[2] = {r0[0] + 16, live[1] ? r0[1] + 16 : 0};  // steps s < s_end
+
+  float acc[2][8][4] = {};
+  // inter-chunk read-out: acc[m][t][p] = sum_n C[t][n] h[p][n]
+#pragma unroll 2
+  for (int kk = 0; kk < kMaxPN / 8; ++kk) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float* a = cs + (min(r0[m], q16 - 16) + g) * kLd + 8 * kk + t;
+      split_tf32(a[0], ah[m][0], al[m][0]);
+      split_tf32(a[8 * kLd], ah[m][1], al[m][1]);
+      split_tf32(a[4], ah[m][2], al[m][2]);
+      split_tf32(a[8 * kLd + 4], ah[m][3], al[m][3]);
+    }
+    BSplit<8> bf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float* bp = hs + (8 * j + g) * kLd + 8 * kk + t;
+      split_tf32(bp[0], bf.v[j][0], bf.v[j][2]);
+      split_tf32(bp[4], bf.v[j][1], bf.v[j][3]);
+    }
+    mma_3xtf32_row(acc[0], ah[0], al[0], bf);
+    if (live[1]) mma_3xtf32_row(acc[1], ah[1], al[1], bf);
+  }
+  float cr[2][2];  // cum of this lane's rows: [m][row g or g + 8]
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = min(r0[m], q16 - 16) + g + 8 * hr;
+      cr[m][hr] = cum[r];
+      const float e = expf(cr[m][hr]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[m][j][2 * hr] *= e;
+        acc[m][j][2 * hr + 1] *= e;
+      }
+    }
+
+  // intra-chunk term over steps s < s_end[m], 8 at a time.  The A operand
+  // W[t][s] is built in the accumulator's layout (columns 2t, 2t + 1), so
+  // its k index is permuted: logical k = t is step s0 + 2t, k = t + 4 is
+  // s0 + 2t + 1, and x's B fragment takes the same rows.  G's values for a
+  // step are loaded two steps ahead.
+  const float* gbc = gram + (long long)bc * Qg * Qg + 2 * t;
+  const float* grow[2][2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      grow[m][hr] = gbc + (long long)(min(r0[m], q16 - 16) + g + 8 * hr) * Qg;
+  const int steps = max(s_end[0], s_end[1]);
+  float2 gq[2][2][2];  // [in flight: s0, s0 + 8][m][row half]
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        gq[u][m][hr] = 8 * u < s_end[m]
+                           ? *reinterpret_cast<const float2*>(grow[m][hr] + 8 * u)
+                           : make_float2(0.f, 0.f);
+#pragma unroll 2
+  for (int s0 = 0; s0 < steps; s0 += 8) {
+    float2 gv[2][2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        gv[m][hr] = gq[0][m][hr];
+        gq[0][m][hr] = gq[1][m][hr];
+        gq[1][m][hr] = s0 + 16 < s_end[m]
+                           ? *reinterpret_cast<const float2*>(grow[m][hr] + s0 + 16)
+                           : make_float2(0.f, 0.f);
+      }
+    const int sa = s0 + 2 * t, sb = sa + 1;
+    const float da = dts[sa], db = dts[sb], ca = cum[sa], cb = cum[sb];
+    uint32_t ah[2][4], al[2][4];
+    bool on[2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      on[m] = s0 < s_end[m];
+      const int ra = r0[m] + g, rb = ra + 8;
+      // W[row][s] = G exp(cum_row - cum_s) dt_s for s <= row, else 0.  The
+      // decay's argument is <= 0; exp by the SFU's exp2 errs by ~2^-22 of the
+      // weight plus |arg| 2^-24 of it, and |arg| e^arg <= 1 / e.
+      const float w00 = on[m] && sa <= ra ? gv[m][0].x * ex2((cr[m][0] - ca) * kLog2e) * da : 0.f;
+      const float w01 = on[m] && sb <= ra ? gv[m][0].y * ex2((cr[m][0] - cb) * kLog2e) * db : 0.f;
+      const float w10 = on[m] && sa <= rb ? gv[m][1].x * ex2((cr[m][1] - ca) * kLog2e) * da : 0.f;
+      const float w11 = on[m] && sb <= rb ? gv[m][1].y * ex2((cr[m][1] - cb) * kLog2e) * db : 0.f;
+      split_tf32(w00, ah[m][0], al[m][0]);
+      split_tf32(w10, ah[m][1], al[m][1]);
+      split_tf32(w01, ah[m][2], al[m][2]);
+      split_tf32(w11, ah[m][3], al[m][3]);
+    }
+    BSplit<8> bf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      split_tf32(xs[sa * kLd + 8 * j + g], bf.v[j][0], bf.v[j][2]);
+      split_tf32(xs[sb * kLd + 8 * j + g], bf.v[j][1], bf.v[j][3]);
+    }
+    if (on[0]) mma_3xtf32_row(acc[0], ah[0], al[0], bf);
+    if (on[1]) mma_3xtf32_row(acc[1], ah[1], al[1], bf);
+  }
+  float* yc = y + b * sd.y[0] + h * sd.y[1] + c * sd.y[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    if (!live[m]) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0[m] + g + 8 * (e >> 1), p = 8 * j + 2 * t + (e & 1);
+        if (r < Q && p < P) yc[r * sd.y[3] + p] = acc[m][j][e];
+      }
+  }
 }
 
 }  // namespace repro_torch
 
 // Q <= 256 and P, N <= 64 (kernels/mamba_scan.py checks them first).
-// strides: the 22 element strides of ScanStrides, in its order.  Returns the
-// CUDA error of the launch (0 on success); runs on `stream`.
+// strides: the 22 element strides of ScanStrides, in its order.  vec4: every
+// row of x, Bm and Cm starts on a 16-byte boundary and P, N are multiples of
+// 4 (cp.async then moves 16 bytes a thread).  Scratch, f32: gram (B, NC, Qg,
+// Qg) with Qg = Q rounded up to 64, states (B, H, NC, P, N), cum_end (B, NC,
+// H).  Launches the four passes on `stream`; returns the first CUDA error (0
+// on success).
 extern "C" int repro_torch_mamba_scan(const float* x, const float* dt,
                                       const float* ld, const float* bm,
                                       const float* cm, const float* h0,
-                                      float* y, float* h_out, int B, int H,
-                                      int NC, int Q, int P, int N,
+                                      float* y, float* h_out, float* gram,
+                                      float* states, float* cum_end, int B, int H,
+                                      int NC, int Q, int P, int N, int vec4,
                                       const long long* strides, void* stream) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B == 0 || H == 0) return 0;
-  if (Q < 1 || Q > kMaxQ || P > kMaxPN || N > kMaxPN) return (int)cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || NC == 0) return 0;
+  if (Q < 1 || Q > kMaxQ || P < 1 || N < 1 || P > kMaxPN || N > kMaxPN)
+    return (int)cudaErrorInvalidValue;
   ScanStrides sd;
   long long* dst[] = {sd.x, sd.dt, sd.ld, sd.bm, sd.cm, sd.y};
   const int len[] = {4, 4, 4, 3, 3, 4};
   for (int a = 0, i = 0; a < 6; ++a)
     for (int j = 0; j < len[a]; ++j) dst[a][j] = strides[i++];
-  const int smem = (5 * kT * kLd + 2 * kMaxQ + kScanThreads / 32) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int qt = (Q + kTile - 1) / kTile;
+  const int Qg = qt * kTile;
+  const int q16 = (Q + 15) / 16 * 16;
+
+  mamba_scan_kernel_gram<<<dim3(qt * (qt + 1) / 2, B * NC), kGemmThreads, 0, st>>>(
+      bm, cm, gram, NC, Q, N, Qg, vec4, sd);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  mamba_scan_kernel<<<B * H, kScanThreads, smem, st>>>(x, dt, ld, bm, cm, h0, y,
-                                                       h_out, H, NC, Q, P, N, sd);
+
+  const int states_smem = (4 * kTile * kLdT + 2 * kMaxQ) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(mamba_scan_kernel_states,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, states_smem);
+  if (err != cudaSuccess) return (int)err;
+  mamba_scan_kernel_states<<<B * NC * H, kGemmThreads, states_smem, st>>>(
+      x, dt, ld, bm, states, cum_end, H, NC, Q, P, N, vec4, sd);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const long long total = (long long)B * H * P * N;
+  mamba_scan_kernel_carry<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      states, cum_end, h0, h_out, H, NC, P * N, total);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int out_smem = ((2 * q16 + kMaxPN) * kLd + 2 * q16) * (int)sizeof(float);
+  err = cudaFuncSetAttribute(mamba_scan_kernel_output,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, out_smem);
+  if (err != cudaSuccess) return (int)err;
+  mamba_scan_kernel_output<<<B * NC * H, kOutThreads, out_smem, st>>>(
+      x, dt, ld, cm, gram, states, y, H, NC, Q, P, N, Qg, vec4, sd);
   return (int)cudaGetLastError();
 }

@@ -6,10 +6,16 @@ Pallas kernel of the same name: online-softmax attention, head-major
 ``(B, H, Sq, hd) × (B, Hkv, Sk, hd)``, causal or full, optional sliding
 window, GQA by index.  Each tensor may be any view whose last dim is
 contiguous (the kernel takes the batch, head and row strides), so the
-model's ``(B, S, H, hd)`` tensors go in as ``transpose(1, 2)`` views.  A CUDA tensor launches the kernel or raises
-``kernels.build.KernelError``; a CPU tensor runs
-:func:`~repro_torch.kernels.ref.flash_attention_plain`.  ``LAUNCHES``
-counts kernel launches.
+model's ``(B, S, H, hd)`` tensors go in as ``transpose(1, 2)`` views.  A CUDA
+tensor launches the kernel or raises ``kernels.build.KernelError``; a CPU
+tensor runs :func:`~repro_torch.kernels.ref.flash_attention_plain`.
+
+The kernel has two variants behind one C entry point, chosen by
+:func:`flash_variant` from the dtype and head width alone: bfloat16 at hd 64
+and 128 runs on the tensor cores (``wgmma``, with P split into two bf16
+parts, and ``cp.async`` staging), float32 and the narrow bfloat16 heads on
+the CUDA cores.  ``LAUNCHES`` counts kernel launches, one per call whichever
+the variant; ``VARIANT_LAUNCHES`` counts them by variant.
 """
 
 from __future__ import annotations
@@ -28,20 +34,43 @@ __all__ = [
     "flash_attention_plain",
     "FLASH_HEAD_DIMS",
     "LAUNCHES",
+    "TENSOR_CORE_HEAD_DIMS",
+    "VARIANT_LAUNCHES",
+    "flash_variant",
     "reset_launches",
 ]
 
 # head widths the kernel is instantiated for
 FLASH_HEAD_DIMS = (8, 16, 32, 64, 128)
+# bfloat16 head widths the tensor-core variant is instantiated for
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VARIANT_CODES = {"cuda_cores": 0, "tensor_cores": 1}
 
 # launches since the last reset_launches(); the wrapper adds one exactly
 # where it launches its kernel, and nowhere else
 LAUNCHES = {"flash_attention_kernel": 0}
+VARIANT_LAUNCHES = {variant: 0 for variant in _VARIANT_CODES}
 
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention_kernel"] = 0
+    for variant in VARIANT_LAUNCHES:
+        VARIANT_LAUNCHES[variant] = 0
+
+
+def flash_variant(dtype: torch.dtype, hd: int) -> str:
+    """The kernel variant that takes inputs of ``dtype`` and head width
+    ``hd``: ``"tensor_cores"`` for bfloat16 at hd 64 or 128, else
+    ``"cuda_cores"``.  Nothing else decides it."""
+    return ("tensor_cores" if dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS
+            else "cuda_cores")
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every row of ``t`` (B, H, S, hd) in bf16 starts on a 16-byte boundary."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
 
 
 def _library():
@@ -50,7 +79,7 @@ def _library():
     lib = build.load("flash_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.repro_torch_flash_attention.argtypes = (
-        [P] * 4 + [I] * 8 + [ctypes.c_float, I, ctypes.POINTER(ctypes.c_longlong), P]
+        [P] * 4 + [I] * 8 + [ctypes.c_float, I, I, ctypes.POINTER(ctypes.c_longlong), P]
     )
     return lib  # restype: ctypes' default c_int, the CUDA error code
 
@@ -69,7 +98,9 @@ def flash_attention_kernel(
     Inputs are float32 or bfloat16, all of one dtype, each with a
     contiguous last dim; ``H`` is a multiple of ``Hkv``; ``window`` (if
     given) is ``>= 0``.  On a CUDA tensor ``hd`` must be one of
-    ``FLASH_HEAD_DIMS``.  The output has q's strides where q is dense (a
+    ``FLASH_HEAD_DIMS``, and where the tensor-core variant takes the inputs
+    their rows are 16-byte aligned (each tensor's address and its batch,
+    head and row strides).  The output has q's strides where q is dense (a
     ``transpose(1, 2)`` view of a contiguous tensor gives one back)."""
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"expected 4-D q and k, got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -92,18 +123,23 @@ def flash_attention_kernel(
         raise ValueError(f"no flash-attention kernel for device {dev}")
     if hd not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention_kernel takes hd in {FLASH_HEAD_DIMS}, got {hd}")
+    variant = flash_variant(q.dtype, hd)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(
-        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    tensors = (q, k, v, out)
+    strides = [st for t in tensors for st in t.stride()[:3]]
+    if variant == "tensor_cores" and not all(_rows_aligned(t) for t in tensors):
+        raise ValueError("the tensor-core flash-attention kernel takes rows that are "
+                         f"16-byte aligned; got strides {strides}")
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.repro_torch_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, hkv, sq, sk, hd, int(causal),
             -1 if window is None else min(int(window), 2**30),
-            float(scale), _DTYPE_CODES[q.dtype], strides,
+            float(scale), _DTYPE_CODES[q.dtype], _VARIANT_CODES[variant],
+            (ctypes.c_longlong * 12)(*strides),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -112,4 +148,5 @@ def flash_attention_kernel(
             f"q={tuple(q.shape)}, k={tuple(k.shape)}, {q.dtype})"
         )
     LAUNCHES["flash_attention_kernel"] += 1
+    VARIANT_LAUNCHES[variant] += 1
     return out

@@ -2,14 +2,17 @@
 its plain PyTorch version.
 
 :func:`mamba_chunk_scan_kernel` is the counterpart of the JAX package's
-Pallas kernel of the same name: per (batch, head) the chunks of a
-sequence are walked in order with the ``P × N`` state kept on chip.
+Pallas kernel of the same name.  Where the TPU kernel walks the chunks of
+one (batch, head) in order with the ``P × N`` state kept on chip, the CUDA
+version is four chunk-parallel passes (``C·Bᵀ`` once per (batch, chunk);
+each chunk's own state contribution; the carry of the state across chunks;
+the output), with every product on the tensor cores as 3xTF32.  One call of
+the wrapper launches the four passes and counts once in ``LAUNCHES``.
 ``x``, ``dt``, ``ld``, ``Bm`` and ``Cm`` may be views (the kernel takes
 their strides; the last dim of ``x``, ``Bm`` and ``Cm`` contiguous), so the
 model's step-major ``(B, S, H, P)`` tensors go in without head-major copies.
 A CUDA tensor launches the kernel or raises ``kernels.build.KernelError``;
 a CPU tensor runs :func:`~repro_torch.kernels.ref.mamba_chunk_scan_plain`.
-``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -31,13 +34,14 @@ __all__ = [
     "reset_launches",
 ]
 
-# the kernel's own limits (csrc/mamba_scan.cu: one thread per step of a
-# chunk for the cumsum; head width P and state width N fit one 64-wide tile)
+# the kernel's own limits (csrc/mamba_scan.cu: a chunk's cumsum is one warp
+# of 8 steps a lane; head width P and state width N are padded to one
+# 64-wide tile)
 MAMBA_MAX_CHUNK = 256
 MAMBA_MAX_WIDTH = 64
 
-# launches since the last reset_launches(); the wrapper adds one exactly
-# where it launches its kernel, and nowhere else
+# calls that launched the kernel since the last reset_launches(); the wrapper
+# adds one exactly where it launches the four passes, and nowhere else
 LAUNCHES = {"mamba_chunk_scan_kernel": 0}
 
 
@@ -51,7 +55,7 @@ def _library():
     lib = build.load("mamba_scan")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.repro_torch_mamba_scan.argtypes = (
-        [P] * 8 + [I] * 6 + [ctypes.POINTER(ctypes.c_longlong), P])
+        [P] * 11 + [I] * 7 + [ctypes.POINTER(ctypes.c_longlong), P])
     return lib  # restype: ctypes' default c_int, the CUDA error code
 
 
@@ -92,8 +96,17 @@ def mamba_chunk_scan_kernel(
         )
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
-    if b * h == 0:
+    if b * h * nc == 0:
         return y, h_out
+    # scratch of the passes: C·Bᵀ per (batch, chunk) in 64-step tiles, the
+    # per-chunk states (S_c, then the state entering chunk c), cum_end
+    qg = -(-q // 64) * 64
+    gram = torch.empty((b, nc, qg, qg), dtype=f32, device=dev)
+    states = torch.empty((b, h, nc, p, n), dtype=f32, device=dev)
+    cum_end = torch.empty((b, nc, h), dtype=f32, device=dev)
+    vec4 = p % 4 == 0 and n % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % 4 == 0 for st in t.stride()[:-1])
+        for t in (x, bm, cm))
     strides = (ctypes.c_longlong * 22)(
         *x.stride()[:4], *dt.stride(), *ld.stride(), *bm.stride()[:3],
         *cm.stride()[:3], *y.stride()[:4])
@@ -102,7 +115,9 @@ def mamba_chunk_scan_kernel(
         err = lib.repro_torch_mamba_scan(
             x.data_ptr(), dt.data_ptr(), ld.data_ptr(), bm.data_ptr(),
             cm.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
-            b, h, nc, q, p, n, strides, torch.cuda.current_stream(dev).cuda_stream,
+            gram.data_ptr(), states.data_ptr(), cum_end.data_ptr(),
+            b, h, nc, q, p, n, int(vec4), strides,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise KernelError(

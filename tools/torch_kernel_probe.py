@@ -1,0 +1,236 @@
+#!/usr/bin/env python3
+"""Measurements behind the design of the port's two prefill kernels, on one
+NVIDIA GPU (Hopper).  Diagnostic only: nothing here is imported by the
+package, and ``chip_smoke.py`` stays the check of record.
+
+    python3 tools/torch_kernel_probe.py wgmma-layout    # descriptor fields of wgmma operands
+    python3 tools/torch_kernel_probe.py flash-variants  # B4 at the prefill shape, by design knob
+    python3 tools/torch_kernel_probe.py mamba-passes    # B5's four passes, device time each
+
+``wgmma-layout`` runs ``tools/torch_wgmma_probe.cu``: for no-swizzle K-major
+and MN-major operands, which (LBO, SBO) assignment gives the right product.
+``flash-variants`` builds ``csrc/flash_attention.cu`` as it is and with one
+knob changed by a text edit (warpgroups a block and blocks an SM; P V
+without the P_lo product; exp2 left out), checks each against the plain
+version at the served prefill shape (bf16 4 x 32 x 8192 x 64, causal,
+window 4096) and times each in the order A, B, ..., ..., B, A; variants
+that change the arithmetic are timings only, their error is printed.
+``mamba-passes`` profiles one B5 call at the served prefill shape (f32 4 x
+64 heads x 32 chunks x 256, P = N = 64) and prints each pass's device time.
+Everything is built into ``build/repro_torch/probe/`` with ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+
+OUT = os.path.join(ROOT, "build", "repro_torch", "probe")
+
+
+def gpu_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def nvcc(src: str, out: str, *flags: str) -> subprocess.Popen:
+    from repro_torch.kernels.build import NVCC_FLAGS, nvcc_path
+
+    return subprocess.Popen([nvcc_path(), *NVCC_FLAGS, *flags, "-o", out, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def wgmma_layout() -> dict:
+    so = os.path.join(OUT, "wgmma_probe.so")
+    proc = nvcc(os.path.join(ROOT, "tools", "torch_wgmma_probe.cu"), so)
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise SystemExit(log)
+    lib = ctypes.CDLL(so)
+    lib.probe.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(64, 64, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(64, 64, generator=gen, device="cuda").bfloat16()
+    d = torch.zeros(64, 64, device="cuda")
+    rows = []
+    # layout 0: cores along the rows of the operand 1024 B apart, along the
+    # other dim 128 B (for which 1: the reverse); the k step is 16 elements
+    for which, want in ((0, a.float() @ b.float().T), (1, a.float() @ b.float())):
+        kstep = {0: {0: 256, 1: 2048}, 1: {0: 2048, 1: 256}}[which]
+        for layout in (0, 1):
+            for lbo, sbo in ((128, 1024), (1024, 128)):
+                d.zero_()
+                err = lib.probe(which, a.data_ptr(), b.data_ptr(), d.data_ptr(), layout, lbo,
+                                sbo, kstep[layout])
+                rows.append({"which": ["K-major A and B", "register A, MN-major B"][which],
+                             "layout": layout, "lbo": lbo, "sbo": sbo, "cuda_error": err,
+                             "max_abs_err": float((d - want).abs().max()) if err == 0 else None})
+    # 128-byte swizzle, 64 bf16 a row: the k step is 32 bytes along a
+    # K-major row, two 8-row groups (2048 bytes) down an MN-major operand
+    for which, want, kstep in ((2, a.float() @ b.float().T, 32), (3, a.float() @ b.float(), 2048)):
+        for lbo, sbo in ((16, 1024), (1024, 1024), (1024, 16)):
+            d.zero_()
+            err = lib.probe(which, a.data_ptr(), b.data_ptr(), d.data_ptr(), 0, lbo, sbo, kstep)
+            rows.append({"which": ["K-major A and B", "register A, MN-major B"][which - 2]
+                         + ", 128-byte swizzle", "lbo": lbo, "sbo": sbo, "cuda_error": err,
+                         "max_abs_err": float((d - want).abs().max()) if err == 0 else None})
+    return {"probe": "wgmma-layout", "rows": rows}
+
+
+FLASH_SRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "flash_attention.cu")
+HD64 = "tc::launch<64, 2, 2>"
+FLASH_VARIANTS = {
+    "as built (2 warpgroups, 2 blocks an SM)": [],
+    "2 warpgroups, 1 block an SM": [(HD64, "tc::launch<64, 2, 1>")],
+    "4 warpgroups, 1 block an SM": [(HD64, "tc::launch<64, 4, 1>")],
+    "without the P_lo product": [("        wgmma_o(o[h2], pl[kk], dv);\n", "")],
+    "without exp2": [("float p = ex2(fmaf(x, scale_log2, -m_new));",
+                      "float p = fmaf(x, scale_log2, -m_new);")],
+}
+
+
+def flash_variants() -> dict:
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    src = open(FLASH_SRC).read()
+    procs = {}
+    for i, (name, edits) in enumerate(FLASH_VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
+            text = text.replace(old, new)
+        path = os.path.join(OUT, f"flash_{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        procs[name] = (path[:-3] + ".so", nvcc(path, path[:-3] + ".so", "-Xptxas", "-v"))
+    libs, regs = {}, {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(log)
+        lines = log.splitlines()
+        regs[name] = [" ".join(x.split("ptxas info    :")[-1].strip() for x in lines[i + 1:i + 4]
+                               if "Used" in x or "spill" in x)
+                      for i, line in enumerate(lines)
+                      if "Compiling entry" in line and "flash_attention_kernel_tc" in line
+                      and "ILi64E" in line]
+        lib = ctypes.CDLL(so)
+        lib.repro_torch_flash_attention.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        libs[name] = lib
+
+    b, h, s, hd, window = 4, 32, 8192, 64, 4096
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw():
+        return torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+
+    q, k, v = draw(), draw(), draw()
+    want = flash_attention_plain(q, k, v, causal=True, window=window).float()
+    tol = 1e-5 + 2.0**-7 * want.abs()
+
+    def run(name):
+        out = torch.empty_like(q)
+        strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+        err = libs[name].repro_torch_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, h, s, s, hd, 1,
+            window, 1.0 / hd**0.5, 1, 1, (ctypes.c_longlong * 12)(*strides),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"{name}: CUDA error {err}")
+        return out
+
+    names = list(libs)
+    times = {n: [] for n in names}
+    for order in (names, names[::-1]):
+        for n in order:
+            times[n].append(cuda_ms(lambda: run(n)))
+    rows = []
+    for n in names:
+        got = run(n).float()
+        rows.append({"variant": n, "ms": times[n], "registers": regs[n],
+                     "max_err_over_tol": float(((got - want).abs() / tol).max())})
+    return {"probe": "flash-variants", "shape": [b, h, h, s, s, hd], "window": window,
+            "rows": rows}
+
+
+def mamba_passes() -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.mamba_scan import mamba_chunk_scan_kernel
+
+    b, h, nc, q, p, n = 4, 64, 32, 256, 64, 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def uniform(lo, hi, shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+
+    def heads(t, *tail):  # step-major (B, S, H, ...) -> head-major views
+        return t.reshape(b, nc, q, h, *tail).movedim(3, 1)
+
+    x = heads(torch.randn((b, nc * q, h, p), generator=gen, device="cuda"), p)
+    dt = heads(uniform(0.05, 1.0, (b, nc * q, h)))
+    ld = heads(-uniform(0.01, 0.8, (b, nc * q, h)))
+    bm = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+    cm = torch.randn((b, nc, q, n), generator=gen, device="cuda")
+    h0 = torch.randn((b, h, p, n), generator=gen, device="cuda")
+    args = (x, dt, ld, bm, cm, h0)
+    reps = 5
+    mamba_chunk_scan_kernel(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            mamba_chunk_scan_kernel(*args)
+        torch.cuda.synchronize()
+    passes = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and "mamba_scan_kernel" in ev.key:
+            passes[ev.key.split("(")[0].split("::")[-1]] = us / reps / 1e3
+    return {"probe": "mamba-passes", "shape": [b, h, nc, q, p, n], "pass_ms": passes,
+            "call_ms": cuda_ms(lambda: mamba_chunk_scan_kernel(*args))}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("probes", nargs="+", choices=("wgmma-layout", "flash-variants",
+                                                      "mamba-passes"))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_probe: no CUDA device", file=sys.stderr)
+        return 1
+    os.makedirs(OUT, exist_ok=True)
+    print(gpu_line(), flush=True)
+    run = {"wgmma-layout": wgmma_layout, "flash-variants": flash_variants,
+           "mamba-passes": mamba_passes}
+    for name in args.probes:
+        print(json.dumps(run[name]()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
