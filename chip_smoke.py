@@ -10,11 +10,14 @@ one JSON object per line:
 1. ``env``          — GPU name and power limit, torch / CUDA / nvcc versions,
                       build seconds.
 2. ``kernel_checks``— the two MCOP solve kernels (B1, B2) against their plain
-                      PyTorch versions on the card at every shape bucket
-                      (masks equal or equal-cost, cuts to ``rtol=1e-5,
-                      atol=1e-5·C_local``), the fused kernel against the solve
-                      kernel fed with ``batch_weights``, and samples against
-                      the f64 oracle.
+                      PyTorch versions on the card at every shape bucket and,
+                      for B1, at the last n whose packed adjacency fits a
+                      block (warp variant) and the first that does not
+                      (scratch variant) (masks equal or equal-cost, cuts to
+                      ``rtol=1e-5, atol=1e-5·C_local``), B1 at two
+                      graphs-a-block settings (bits equal), the fused kernel
+                      against the solve kernel fed with ``batch_weights``,
+                      and samples against the f64 oracle.
 3. ``model_kernel_checks`` — the flash-attention kernel (B4) and the Mamba2
                       scan kernel (B5) against their plain versions at the
                       hybrid model's prefill shapes and at GQA, odd-length
@@ -41,9 +44,13 @@ one JSON object per line:
                       ``rtol=1e-5``), then ``kernels.ops.mcop_min_cut`` on the
                       card on the paper example (cut 22, {a, c} local) and on
                       100 random graphs of 5-256 vertices, every mask equal to
-                      the f64 ``mcop_reference``'s; B3's time (launches
-                      captured in one CUDA graph, and back to back through its
-                      wrapper) and the loop's.
+                      the f64 ``mcop_reference``'s; the device loop's phase
+                      log against the CPU loop's (plain step) on 10 of them
+                      and on a graph above the warp variant's n = 256; B3's
+                      time (launches captured in one CUDA graph, and back to
+                      back through its wrapper), the device loop's time with
+                      its rows staged in shared memory and read from L2, and
+                      the loop's time per graph.
 9. ``serve_broker`` — ``python -m repro_torch.launch.serve_broker --backend
                       cuda`` as a process of its own on the card, driven over a
                       unix socket by a ``BrokerClient``: 300 sessions, 24 ticks,
@@ -62,8 +69,10 @@ launched there fails the run; the server of phase 9 runs B1 in its own
 process, so the phase fails unless its tick reports show solves.  Then a
 ``kernel_work`` line counts the work of the MCOP kernels' timed shapes
 (absorb steps, row traffic, B3's chain and bound terms; computed from the
-inputs, not measured) and B3's absorb steps over the per-phase path, with
-its kernel time estimated from them and B3's two timed shapes; a
+inputs, not measured), the measured ns per absorb step of B1 and B2 at the
+solve-plane shapes (kernel time x graphs the card works on at once / absorb
+steps) and of B3, and B3's absorb steps over the per-phase path, with its
+kernel time estimated from them and the device loop's timed shapes; a
 ``{"kernels": [...]}`` line gives, for all five kernels, its launches on
 its main path, its measured time, its plain version's measured time, the
 time of one PyTorch call computing the same function where there is one,
@@ -75,10 +84,10 @@ non-zero; without a GPU nothing runs.
 
 Switches for work on the kernels (environment variables, all off by default):
 ``SMOKE_PTXAS=1`` rebuilds with ``-Xptxas -v`` and prints registers and
-spills; ``SMOKE_ONLY_CHECKS=1`` stops after phase 3; ``SMOKE_CHECK_MIN_N=236``
-skips phase 2's shapes below that vertex count (what is left runs the
-kernels' scratch-matrix variant only; a value above 768 skips phase 2's
-shapes altogether); ``SMOKE_PROFILE=1`` wraps the timed broker ticks, and
+spills; ``SMOKE_ONLY_CHECKS=1`` stops after phase 3; ``SMOKE_CHECK_MIN_N=342``
+skips phase 2's shapes below that vertex count (on an H100 what is left runs
+the solve kernels' scratch-matrix variant only; a value above 768 skips phase
+2's shapes altogether); ``SMOKE_PROFILE=1`` wraps the timed broker ticks, and
 one more prefill and 8 decode steps of the served model, in
 ``torch.profiler`` and reports the GPU's busy time (by kernel family for
 the model, and B4's and B5's kernels by name) and idle share.
@@ -187,11 +196,13 @@ REPLAY = {"requests": 4, "max_batch": 2, "prompt": (4100, 4608), "new_tokens": 8
 # phase_n (all vertices alive, and with holes after random merges), then
 # mcop_min_cut on `graphs` random graphs of sizes log-uniform over `sizes`
 # (both ends included; seeds seed + i) against the f64 oracle, which
-# `workers` processes solve meanwhile; B3 and the loop timed at time_n, the
-# kernels line at line_n
+# `workers` processes solve meanwhile; the device loop's phase log against
+# the CPU loop's on every `log_every`-th graph and on one graph of `block_n`
+# vertices (B3's block variant); B3, the device loop (both row strategies)
+# and the loop timed at time_n, the kernels line at line_n
 MIN_CUT = {"phase_n": (6, 16, 64, 256, 1024), "graphs": 100, "sizes": (5, 256),
            "seed": 1000, "workers": 6, "time_n": (64, 256), "line_n": 256,
-           "time_reps": 20, "loop_reps": 3}
+           "time_reps": 20, "loop_reps": 3, "log_every": 10, "block_n": 300}
 # the broker behind a process boundary: `sessions` per-user sessions through
 # `ticks` ticks of the demo tenant (`nodes` vertices), a batch group of
 # `capacity` slots from tick `group_tick` on; the second server SIGKILLs
@@ -409,6 +420,19 @@ def absorb_steps(pinned: np.ndarray) -> np.ndarray:
 # ----------------------------------------------------------------------
 
 
+def fits(n: int, b: int, graphs_per_block: int) -> bool:
+    """Whether B1's warp variant takes ``graphs_per_block`` n-vertex graphs
+    a block on this card."""
+    from repro_torch.kernels import mcop_phase as K
+
+    try:
+        K.solve_plan("mcop_stoer_wagner_kernel", n, b, graphs_per_block=graphs_per_block,
+                     device=DEVICE)
+    except K.KernelError:
+        return False
+    return True
+
+
 def phase_kernel_checks(rng) -> dict:
     from repro_torch.core.graph import WCG
     from repro_torch.core.mcop import mcop_reference
@@ -419,7 +443,9 @@ def phase_kernel_checks(rng) -> dict:
 
     entries = []
     # ---- solve kernel: (n, kernel batch, plain batch, oracle samples) ----
-    for n, b, b_plain, n_ref in SW_CHECKS:
+    # and both sides of the warp variant's packed limit
+    limit = K.packed_limit(DEVICE)
+    for n, b, b_plain, n_ref in (*SW_CHECKS, (limit, 264, 8, 1), (limit + 1, 132, 8, 1)):
         if n < CHECK_MIN_N:
             continue
         # a third of the graphs are smaller than the bucket (padding)
@@ -428,8 +454,24 @@ def phase_kernel_checks(rng) -> dict:
         dev = to_dev(host)
         got = to_host(K.mcop_stoer_wagner_kernel(*dev))
         torch.cuda.synchronize()
+        plan = K.solve_plan("mcop_stoer_wagner_kernel", n, b, device=DEVICE)
         entry = {"name": "mcop_stoer_wagner_kernel", "shape": [b, n, n],
-                 "plain_batch": b_plain}
+                 "plain_batch": b_plain, "variant": "warp" if plan["cpl"] else "block",
+                 "graphs_per_block": plan["graphs_per_block"], "packed_limit": limit}
+        if bool(plan["cpl"]) != (n <= limit):
+            raise AssertionError(f"sw n={n}: {plan} on the wrong side of the limit {limit}")
+        # the same bits at one graph a block, the most that fit up to 8, and
+        # the plan's own choice (the run above)
+        most = next((g for g in (8, 4, 2) if plan["cpl"] and fits(n, b, g)), None)
+        if most is not None:
+            settings = (1, most)
+            runs = [to_host(K._solve_sw(*dev, graphs_per_block=g)) for g in settings]
+            for cuts, masks in runs:
+                if not (np.array_equal(cuts.view(np.int32), got[0].view(np.int32))
+                        and np.array_equal(masks, got[1])):
+                    raise AssertionError(
+                        f"sw n={n}: bits differ across graphs a block {settings}")
+            entry["bitwise_graphs_per_block"] = list(settings)
         if b_plain:
             sub = tuple(t[:b_plain].contiguous() for t in dev)
             want, entry["plain_ms"] = timed(lambda: K.stoer_wagner_plain(*sub))
@@ -841,6 +883,8 @@ def measure_kernels(rng, n: int, k: int, kind: str, *, reps: int) -> dict:
     out = {"work": {"shape": [k, n], "absorb_steps": steps,
                     "row_traffic_bytes": steps * n * 4,
                     "row_traffic_ms_computed": steps * n * 4 / SMEM_BYTES_PER_S * 1e3}}
+    plans = {key: K.solve_plan(name, n, k, device=DEVICE) for key, name in (
+        ("sw", "mcop_stoer_wagner_kernel"), ("fused", "mcop_fused_solve_kernel"))}
     for key, fn, plain_ms, (b_ms, b_by) in (
         ("sw", sw, plain_sw_ms, bound(sw_bytes, solve_flops, FP32_FLOP_PER_S)),
         ("fused", fused, plain_fused_ms, bound(fused_bytes, fused_flops, FP32_FLOP_PER_S)),
@@ -849,6 +893,11 @@ def measure_kernels(rng, n: int, k: int, kind: str, *, reps: int) -> dict:
                     "tie_masks": err[key]["tie_masks"],
                     "ms": cuda_ms(fn, reps=reps), "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, **common}
+        # the chain's latency: each resident graph advances one absorb step
+        # at a time, so a step takes time x graphs at once / all steps
+        resident = plans[key]["resident_graphs"]
+        out["work"][f"{key}_plan"] = plans[key]
+        out["work"][f"{key}_ns_per_step"] = out[key]["ms"] * 1e6 * resident / steps
     return out
 
 
@@ -1327,17 +1376,108 @@ def merged_phase_state(rng, adj, wl, wc, pinned, merges: int):
     return adj, wl - wc, alive, src, ctot
 
 
+def hold_phase_log(tag, g, run) -> dict:
+    """``mcop_min_cut``'s loop on the card and on the CPU (plain step) on
+    graph ``g``: every phase's ``(s, t)`` equal, its cut to ``rtol``, the
+    results equal."""
+    cut_d, mask_d, st_d = run(g.adj, g.w_local, g.w_cloud, g.offloadable, device=DEVICE)
+    cut_c, mask_c, st_c = run(g.adj, g.w_local, g.w_cloud, g.offloadable, device="cpu")
+    log_d, log_c = st_d.read_log(), st_c.read_log()
+    if [p[1:] for p in log_d] != [p[1:] for p in log_c] or not np.array_equal(mask_d, mask_c):
+        raise AssertionError(f"min_cut: graph {tag} (n={g.n}): phase log differs from the CPU loop")
+    err = max(abs(a[0] - b[0]) for a, b in zip(log_d, log_c))
+    if err > RTOL * max(abs(b[0]) for b in log_c) or abs(cut_d - cut_c) > RTOL * abs(cut_c):
+        raise AssertionError(f"min_cut: graph {tag} (n={g.n}): phase cuts differ by {err}")
+    return {"graph": tag, "n": g.n, "phases": len(log_d), "max_abs_cut_err": err}
+
+
+def device_loop_ms(g, *, reps: int) -> dict:
+    """The device loop's kernel time on graph ``g`` for each row strategy
+    of B3's step kernel: ``reps`` runs of every phase's launch, captured in
+    one CUDA graph, each behind a copy that restores the folded state; the
+    copy alone; and ns per absorb step (counted: m (m - 1) / 2 for m
+    vertices alive after the fold)."""
+    from repro_torch.kernels.mcop_phase import mcop_phase_step
+    from repro_torch.kernels.ops import _min_cut_state
+
+    state, c_total = _min_cut_state(g.adj, g.w_local, g.w_cloud, g.offloadable,
+                                    device=DEVICE)
+    pristine = state.buffer.clone()
+    m = state.phases + 1
+    steps = m * (m - 1) // 2
+    out = {"device_loop_absorb_steps": steps,
+           "restore_copy_ms": graph_ms(lambda: state.buffer.copy_(pristine), reps=reps)}
+    for rows in ("staged", "l2"):
+        def loop():
+            state.buffer.copy_(pristine)
+            for phase in range(state.phases):
+                mcop_phase_step(state, phase, c_total, rows=rows)
+
+        ms = graph_ms(loop, reps=reps)
+        out[f"device_loop_ms_{rows}"] = ms
+        out[f"ns_per_step_{rows}"] = (ms - out["restore_copy_ms"]) * 1e6 / steps
+    return out
+
+
+class OracleWorkers:
+    """The f64 oracle (``mcop_reference``) on ``graphs``, solved in
+    ``workers`` child processes while the caller works: child ``k`` takes
+    graphs ``k, k + workers, ...`` from a pickle file and writes their
+    results as one pickle on its standard output.  Leaving the ``with``
+    block kills and reaps every child still running, so none outlives it
+    (a ``multiprocessing`` pool would leave its resource tracker behind)."""
+
+    CODE = ("import pickle, sys; from repro_torch.core import mcop_reference; "
+            "gs = pickle.load(open(sys.argv[1], 'rb')); "
+            "pickle.dump([mcop_reference(g) for g in gs], sys.stdout.buffer)")
+
+    def __init__(self, graphs: list, workers: int):
+        import pickle
+        import tempfile
+
+        self.n, self.workers = len(graphs), workers
+        self.tmp = tempfile.TemporaryDirectory(prefix="oracle_")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        self.procs = []
+        for k in range(workers):
+            path = os.path.join(self.tmp.name, f"graphs{k}.pkl")
+            with open(path, "wb") as f:
+                pickle.dump(graphs[k::workers], f)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-c", self.CODE, path],
+                stdout=subprocess.PIPE, env=env, cwd=ROOT))
+
+    def results(self) -> list:
+        """Every graph's result, in the order of ``graphs``."""
+        import pickle
+
+        chunks = []
+        for k, proc in enumerate(self.procs):
+            data, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise AssertionError(f"oracle worker {k} exited {proc.returncode}")
+            chunks.append(pickle.loads(data))
+        return [chunks[i % self.workers][i // self.workers] for i in range(self.n)]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+        self.tmp.cleanup()
+
+
 def phase_min_cut(rng) -> dict:
     """B3 against its plain version on single phases; ``mcop_min_cut`` on
     the card (the path that launches B3, read with the launch counters set
     to 0 just before it) on the paper example and on random graphs, every
     mask equal to the f64 oracle's; B3's and the loop's times."""
-    from concurrent.futures import ProcessPoolExecutor
-    import multiprocessing
-
     from repro_torch.core import mcop_reference, paper_example_graph, random_wcg
     from repro_torch.kernels import mcop_phase as K
-    from repro_torch.kernels.ops import mcop_min_cut
+    from repro_torch.kernels.ops import _min_cut_run, mcop_min_cut
     from repro_torch.kernels.ref import mcop_phase_plain
 
     spec = MIN_CUT
@@ -1350,9 +1490,7 @@ def phase_min_cut(rng) -> dict:
     out = {"phase": "min_cut"}
     # the f64 oracle is a host loop of ~n^2/2 steps: solve it in worker
     # processes while the card works
-    with ProcessPoolExecutor(spec["workers"], mp_context=multiprocessing.get_context(
-            "spawn")) as pool:
-        oracle = [pool.submit(mcop_reference, g) for g in graphs]
+    with OracleWorkers(graphs, spec["workers"]) as oracle:
 
         # ---- B3 against mcop_phase_plain, single phases ------------------
         checks, differ, worst = 0, [], 0.0
@@ -1391,7 +1529,12 @@ def phase_min_cut(rng) -> dict:
                    for g in graphs]
         path_s = time.perf_counter() - t0
         launches = all_launches()  # ---- and ends here ----
-        refs = [f.result() for f in oracle]
+        # the device loop's phase log against the CPU loop's (the plain step)
+        logged = [(i, g) for i, g in enumerate(graphs)][::spec["log_every"]]
+        logged.append(("block", random_wcg(spec["block_n"], rng=np.random.default_rng(
+            spec["seed"] - 1))))
+        out["phase_logs"] = [hold_phase_log(tag, g, _min_cut_run) for tag, g in logged]
+        refs = oracle.results()
 
     # ---- B3's time per launch, and the loop's per graph, with the -----
     # ---- oracle's workers gone (they share the host with the loop) ---
@@ -1426,7 +1569,8 @@ def phase_min_cut(rng) -> dict:
         work.append({"n": n, "n_alive": n_alive, "chain_argmaxes": n_alive - 1,
                      "bound_bytes": nbytes, "bound_flops": flops})
         loop.append({"n": n, "min_cut_ms_per_graph": loop_ms,
-                     "reference_ms_per_graph": ref_ms})
+                     "reference_ms_per_graph": ref_ms,
+                     **device_loop_ms(g, reps=spec["loop_reps"])})
     out["timing"], out["work"], out["loop"] = timing, work, loop
 
     local = {paper.names[i] for i in np.nonzero(paper_mask)[0]}
@@ -1744,6 +1888,25 @@ def phase_serve_broker() -> dict:
     return out
 
 
+def child_processes() -> list[str]:
+    """The command lines of this process's living children (Linux ``/proc``)."""
+    left = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read()
+            # fields after the parenthesised command: state, ppid, ...
+            state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+            if int(ppid) != os.getpid():
+                continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except (FileNotFoundError, ProcessLookupError):  # ended meanwhile
+            continue
+        left.append(f"{pid} ({state}): {cmd}")
+    return left
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1844,12 +2007,13 @@ def main() -> int:
         "other_shapes": [t for t in min_cut["timing"] if t is not line],
     })
     work["mcop_phase_kernel"] = min_cut["work"]
-    # B3's kernel time on the per-phase path, estimated from counts and its
-    # two timed shapes: an absorb step on a graph of n vertices costs the
-    # all-alive launch time over its n - 1 steps, interpolated linearly in n
-    # between the timed n = 64 and n = 256 (held at the ends)
-    (n_a, t_a), (n_b, t_b) = sorted((t["n"], t["ms"]) for t in min_cut["timing"])
-    step_a, step_b = t_a / (n_a - 1), t_b / (n_b - 1)
+    # B3's kernel time on the per-phase path, estimated from counts and the
+    # device loop's two timed graphs: an absorb step on a graph of n
+    # vertices costs the staged loop's ns per step, interpolated linearly in
+    # n between the timed n = 64 and n = 256 (held at the ends)
+    (n_a, t_a), (n_b, t_b) = sorted(
+        (t["n"], t["ns_per_step_staged"] * 1e-6) for t in min_cut["loop"])
+    step_a, step_b = t_a, t_b
 
     def step_ms(n: int) -> float:
         f = min(max((n - n_a) / (n_b - n_a), 0.0), 1.0)
@@ -1867,6 +2031,9 @@ def main() -> int:
     emit(work)
     emit(kernels)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    left = child_processes()
+    if left:
+        raise AssertionError(f"processes this script started are still running: {left}")
     print(gpu, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,29 +1,38 @@
 """MCOP kernels for an NVIDIA GPU, with their plain PyTorch versions.
 
 Two kernels solve the full modified Stoer–Wagner of the paper's
-Algorithms 1–3 batched over graphs, one thread block per graph:
+Algorithms 1–3 batched over graphs, one warp per graph with the adjacency
+on chip as the packed upper triangle up to :func:`packed_limit` vertices
+(several graphs a block), one thread block per graph with a scratch matrix
+above it:
 
 * :func:`mcop_stoer_wagner_kernel` (``csrc/mcop_sw.cu``) — solves a batch
   of ``(B, n, n)`` adjacencies held in device memory.  Counterpart of the
   JAX package's Pallas kernel of the same name.
 * :func:`mcop_fused_solve_kernel` (``csrc/mcop_fused.cu``) — builds each
   environment's Eq. 4/6/8 weights from the application profile inside the
-  block and solves at once; per graph six floats come in and ``1 + n`` go
-  out, and the ``(K, n, n)`` batch never exists in device memory.
+  warp (or block) and solves at once; per graph six floats come in and
+  ``1 + n`` go out, and the ``(K, n, n)`` batch never exists in device
+  memory.
 
-A third runs a single MinCutPhase (Algorithm 3) per launch, for the host
-loop of ``kernels.ops.mcop_min_cut``:
+A third runs a single MinCutPhase (Algorithm 3) per launch
+(``csrc/mcop_phase.cu``; one warp up to n = 256, one block above):
 
-* :func:`mcop_phase_kernel` (``csrc/mcop_phase.cu``) — one phase on an
-  ``(n, n)`` adjacency left in device memory; returns ``(cut, s, t)``.
-  Counterpart of the JAX package's Pallas kernel of the same name.
-  :func:`mcop_phase_packed` launches it and returns the three results
-  in one buffer, for a host loop that reads them back in one copy.
+* :func:`mcop_phase_kernel` — one phase on an ``(n, n)`` adjacency in
+  device memory; returns ``(cut, s, t)``.  Counterpart of the JAX
+  package's Pallas kernel of the same name.  :func:`mcop_phase_packed`
+  launches it and returns the three results in one buffer.
+* :func:`mcop_phase_step` — one phase of ``kernels.ops.mcop_min_cut``'s
+  loop on its device state (:class:`LoopState`: the packed working matrix,
+  merged weights, labels, the best cut and its cloud mask, a log of
+  ``(cut, s, t)``), followed in the same launch by the Algorithm-1 merge
+  and the best-cut update the host loop used to do.
 
 Beside each stands its plain version (:func:`stoer_wagner_plain`,
-:func:`fused_solve_plain`, ``kernels.ref.mcop_phase_plain``): the same
-function as tensor code, the two solves batched with fixed loop bounds and
-lane masks and no host synchronisation inside the loops.  A wrapper takes
+:func:`fused_solve_plain`, ``kernels.ref.mcop_phase_plain``,
+``kernels.ref.mcop_phase_step_plain``): the same function as tensor code,
+the two solves batched with fixed loop bounds and lane masks and no host
+synchronisation inside the loops.  A wrapper takes
 the plain version **only** for tensors that lie on
 the CPU; on a CUDA tensor it launches the kernel or raises
 ``kernels.build.KernelError`` — there is no switch and no ``try`` between
@@ -33,15 +42,18 @@ Semantics shared by all four (and by ``core.mcop.mcop_reference``): the
 anchor is the first pinned vertex (vertex 0 if none), every other pinned
 vertex is folded into it, ties in the most-tightly-connected-vertex scan
 go to the lowest index, a cut improves only on strict ``<``, and padded
-vertices are encoded pinned with zero weights and zero edges.  Arithmetic
-is float32; sums are taken in different orders by the kernels and the
-plain versions, so cuts agree to rounding, not bitwise.
+vertices are encoded pinned with zero weights and zero edges.  Adjacencies
+are symmetric with a zero diagonal (a WCG's are): the packed kernels read
+the upper triangle.  Arithmetic is float32; sums are taken in different
+orders by the kernels and the plain versions, so cuts agree to rounding,
+not bitwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.build import KernelError
@@ -52,7 +64,14 @@ __all__ = [
     "mcop_fused_solve_kernel",
     "mcop_phase_kernel",
     "mcop_phase_packed",
+    "mcop_phase_step",
     "phase_result",
+    "LoopState",
+    "packed_limit",
+    "solve_plan",
+    "triangle_index",
+    "pack_triangle",
+    "unpack_triangle",
     "stoer_wagner_plain",
     "fused_solve_plain",
     "FUSED_MODEL_KINDS",
@@ -76,8 +95,9 @@ FUSED_MODEL_KINDS = ("time", "energy", "weighted")
 
 # Largest vertex count each kernel accepts: every shape bucket the solver
 # front ends produce up to the reference package's own wrapper limits
-# (16, 64, 256, then 64-aligned sizes).  Above roughly 235 vertices the working
-# adjacency no longer fits a block's shared memory and lives in scratch.
+# (16, 64, 256, then 64-aligned sizes).  Above packed_limit() (341 vertices
+# on an H100) the packed adjacency no longer fits a block's shared memory and
+# lives in a scratch matrix in device memory.
 SW_MAX_N = 768
 FUSED_MAX_N = 512
 # The phase kernel takes what the reference package's phase wrapper takes:
@@ -105,6 +125,51 @@ def require_device(device: str | torch.device) -> torch.device:
         except (AssertionError, RuntimeError) as err:
             raise KernelError(f"device {dev} is not available: {err}") from err
     return dev
+
+
+# ======================================================================
+# The packed upper triangle (the kernels' working-matrix layout)
+# ======================================================================
+
+
+def tri_floats(n: int) -> int:
+    return n * (n - 1) // 2
+
+
+def triangle_index(i, j, n: int):
+    """Position of element ``(i, j)``, ``i != j``, of a symmetric ``n x n``
+    matrix with a zero diagonal in its packed upper triangle: rows ``i = 0,
+    1, ...`` one after another, row ``i`` holding columns ``i + 1 .. n - 1``
+    (``csrc/sw_common.cuh:tri_row``).  Ints, numpy arrays or, when either
+    is one, tensors."""
+    if isinstance(i, torch.Tensor) or isinstance(j, torch.Tensor):
+        i, j = torch.as_tensor(i), torch.as_tensor(j)
+        lo, hi = torch.minimum(i, j), torch.maximum(i, j)
+    else:
+        lo, hi = np.minimum(i, j), np.maximum(i, j)
+    return lo * (2 * n - lo - 1) // 2 + hi - lo - 1
+
+
+def pack_triangle(adj):
+    """The packed upper triangle of a square matrix (numpy or torch), in
+    the matrix's dtype and on its device."""
+    n = adj.shape[-1]
+    if isinstance(adj, torch.Tensor):
+        iu = torch.triu_indices(n, n, offset=1, device=adj.device)
+        return adj[..., iu[0], iu[1]]
+    iu = np.triu_indices(n, k=1)
+    return adj[..., iu[0], iu[1]]
+
+
+def unpack_triangle(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """The symmetric ``(n, n)`` matrix with a zero diagonal whose packed
+    upper triangle is ``packed[:n (n - 1) / 2]``."""
+    full = torch.zeros((n, n), dtype=packed.dtype, device=packed.device)
+    iu = torch.triu_indices(n, n, offset=1, device=packed.device)
+    vals = packed[: tri_floats(n)]
+    full[iu[0], iu[1]] = vals
+    full[iu[1], iu[0]] = vals
+    return full
 
 
 # ======================================================================
@@ -293,14 +358,18 @@ def _library(name: str):
 
     lib = build.load(name)
     if name == "mcop_sw":
-        lib.repro_torch_sw_plan.argtypes = [_I, ctypes.POINTER(_I)]
+        lib.repro_torch_sw_packed_limit.argtypes = [ctypes.POINTER(_I)]
+        lib.repro_torch_sw_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
         lib.repro_torch_sw_solve.argtypes = [_P] * 7 + [_I] * 6 + [_P]
     elif name == "mcop_phase":
         lib.repro_torch_phase_solve.argtypes = (
             [_P] * 3 + [_I, ctypes.c_float, _I, _I, _P, _P]
         )
+        lib.repro_torch_phase_step.argtypes = (
+            [_P] * 9 + [_I, _I, ctypes.c_float, _I, _P]
+        )
     else:
-        lib.repro_torch_fused_plan.argtypes = [_I, ctypes.POINTER(_I)]
+        lib.repro_torch_fused_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
         lib.repro_torch_fused_solve.argtypes = (
             [_P] * 8 + [_I] * 3 + [ctypes.c_float] + [_I] * 4 + [_P]
         )
@@ -326,22 +395,65 @@ def _require(t: torch.Tensor, name: str, shape: tuple, dtype, device, *,
         raise ValueError(f"{name} must have a contiguous last dim")
 
 
-def _plan(plan_fn, n: int, batch: int, device) -> tuple[int, int, int, int, torch.Tensor]:
-    """Launch geometry and the per-block scratch adjacency (if needed).
+_PLAN_KEYS = ("cpl", "threads", "smem_bytes", "resident_blocks", "graphs_per_block")
 
-    The scratch is freed when the wrapper returns, possibly before the
-    kernel ends; PyTorch's allocator hands the block only to later work on
-    the same stream, which runs after the kernel."""
-    out = (_I * 4)()
-    err = plan_fn(n, out)
+
+def _plan(plan_fn, n: int, batch: int, graphs_per_block: int = 0) -> dict:
+    """Launch geometry of a B1 or B2 solve of ``batch`` n-vertex graphs on
+    the current device, from the library's plan function: ``cpl`` (columns
+    a lane of the warp variant; 0 = the block variant with a scratch
+    matrix), ``threads``, ``smem_bytes``, ``resident_blocks``,
+    ``graphs_per_block`` and the ``grid``.  ``graphs_per_block`` > 0 asks
+    for that many graphs a block (the result is the same bits for every
+    choice); 0 lets the plan choose."""
+    out = (_I * 5)()
+    err = plan_fn(n, batch, graphs_per_block, out)
     if err != 0:
-        raise KernelError(f"CUDA error {err} while planning an n={n} MCOP solve")
-    threads, in_smem, smem_bytes, resident = (int(x) for x in out)
-    grid = max(1, min(batch, resident))
-    scratch = torch.empty(
-        (0 if in_smem else grid * n * n,), dtype=torch.float32, device=device
-    )
-    return grid, threads, in_smem, smem_bytes, scratch
+        raise KernelError(
+            f"CUDA error {err} while planning an n={n} MCOP solve "
+            f"(graphs_per_block={graphs_per_block})"
+        )
+    plan = dict(zip(_PLAN_KEYS, (int(x) for x in out)))
+    per = plan["graphs_per_block"]
+    plan["grid"] = max(1, min(-(-batch // per), plan["resident_blocks"]))
+    return plan
+
+
+def solve_plan(kernel: str, n: int, batch: int, *, graphs_per_block: int = 0,
+               device="cuda") -> dict:
+    """:func:`_plan` of ``kernel`` (``"mcop_stoer_wagner_kernel"`` or
+    ``"mcop_fused_solve_kernel"``) on ``device``, plus ``resident_graphs``
+    (graphs the card works on at once)."""
+    if kernel == "mcop_stoer_wagner_kernel":
+        plan_fn = _library("mcop_sw").repro_torch_sw_plan
+    else:
+        plan_fn = _library("mcop_fused").repro_torch_fused_plan
+    with torch.cuda.device(require_device(device)):
+        plan = _plan(plan_fn, n, batch, graphs_per_block)
+    plan["resident_graphs"] = min(batch, plan["grid"] * plan["graphs_per_block"])
+    return plan
+
+
+def packed_limit(device="cuda") -> int:
+    """Largest n whose packed adjacency fits one block's shared memory on
+    ``device``: B1 and B2 run their warp variant up to it, the block
+    variant with a scratch matrix above it."""
+    lib = _library("mcop_sw")
+    out = _I()
+    with torch.cuda.device(require_device(device)):
+        err = lib.repro_torch_sw_packed_limit(ctypes.byref(out))
+    if err != 0:
+        raise KernelError(f"CUDA error {err} while reading the packed limit")
+    return int(out.value)
+
+
+def _scratch(plan: dict, n: int, device) -> torch.Tensor:
+    """The block variant's per-block scratch adjacency (empty for the warp
+    variant).  Freed when the wrapper returns, possibly before the kernel
+    ends; PyTorch's allocator hands the block only to later work on the
+    same stream, which runs after the kernel."""
+    size = 0 if plan["cpl"] else plan["grid"] * n * n
+    return torch.empty((size,), dtype=torch.float32, device=device)
 
 
 def mcop_stoer_wagner_kernel(
@@ -355,10 +467,18 @@ def mcop_stoer_wagner_kernel(
     CUDA tensors launch ``csrc/mcop_sw.cu`` on the current stream (no
     synchronisation; outputs and scratch come from ``torch.empty``); CPU
     tensors run :func:`stoer_wagner_plain`.  Returns ``(min_cuts (B,)
-    f32, local_masks (B, n) bool)``.  Dead/padded vertices must be
-    encoded as pinned with zero weights and zero incident edges.
-    Raises ``ValueError`` for ``n > SW_MAX_N``.
+    f32, local_masks (B, n) bool)``.  Each adjacency is symmetric with a
+    zero diagonal; dead/padded vertices must be encoded as pinned with
+    zero weights and zero incident edges.  Raises ``ValueError`` for
+    ``n > SW_MAX_N``.
     """
+    return _solve_sw(adj, w_local, w_cloud, pinned)
+
+
+def _solve_sw(adj, w_local, w_cloud, pinned, graphs_per_block: int = 0):
+    """:func:`mcop_stoer_wagner_kernel` with the graphs a block of its
+    warp variant chosen by the caller (0: by the plan); the checks run it
+    at two settings and compare the bits."""
     if adj.ndim != 3 or adj.shape[-1] != adj.shape[-2]:
         raise ValueError(f"expected a (B, n, n) batch, got {tuple(adj.shape)}")
     b, n = int(adj.shape[0]), int(adj.shape[-1])
@@ -382,20 +502,16 @@ def mcop_stoer_wagner_kernel(
         return cuts, masks
     lib = _library("mcop_sw")
     with torch.cuda.device(dev):
-        grid, threads, in_smem, smem_bytes, scratch = _plan(
-            lib.repro_torch_sw_plan, n, b, dev
-        )
+        plan = _plan(lib.repro_torch_sw_plan, n, b, graphs_per_block)
+        scratch = _scratch(plan, n, dev)
         err = lib.repro_torch_sw_solve(
             adj.data_ptr(), w_local.data_ptr(), w_cloud.data_ptr(),
             pinned.data_ptr(), cuts.data_ptr(), masks.data_ptr(),
-            scratch.data_ptr(), b, n, grid, threads, in_smem, smem_bytes,
-            torch.cuda.current_stream(dev).cuda_stream,
+            scratch.data_ptr(), b, n, plan["grid"], plan["threads"], plan["cpl"],
+            plan["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise KernelError(
-            f"mcop_sw kernel launch refused (CUDA error {err}; B={b}, n={n}, "
-            f"grid={grid}, threads={threads}, smem={smem_bytes})"
-        )
+        raise KernelError(f"mcop_sw kernel launch refused (CUDA error {err}; B={b}, n={n}, {plan})")
     LAUNCHES["mcop_stoer_wagner_kernel"] += 1
     return cuts, masks
 
@@ -446,21 +562,17 @@ def mcop_fused_solve_kernel(
         return cuts, masks
     lib = _library("mcop_fused")
     with torch.cuda.device(dev):
-        grid, threads, in_smem, smem_bytes, scratch = _plan(
-            lib.repro_torch_fused_plan, n, k, dev
-        )
+        plan = _plan(lib.repro_torch_fused_plan, n, k)
+        scratch = _scratch(plan, n, dev)
         err = lib.repro_torch_fused_solve(
             t_local.data_ptr(), data_in.data_ptr(), data_out.data_ptr(),
             pinned.data_ptr(), env.data_ptr(), cuts.data_ptr(), masks.data_ptr(),
             scratch.data_ptr(), k, n, FUSED_MODEL_KINDS.index(kind), float(omega),
-            grid, threads, in_smem, smem_bytes,
+            plan["grid"], plan["threads"], plan["cpl"], plan["smem_bytes"],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise KernelError(
-            f"mcop_fused kernel launch refused (CUDA error {err}; K={k}, n={n}, "
-            f"grid={grid}, threads={threads}, smem={smem_bytes})"
-        )
+        raise KernelError(f"mcop_fused kernel launch refused (CUDA error {err}; K={k}, n={n}, {plan})")
     LAUNCHES["mcop_fused_solve_kernel"] += 1
     return cuts, masks
 
@@ -479,7 +591,8 @@ def mcop_phase_packed(
     ``gains`` and ``alive`` may be arrays or tensors; they are moved to
     ``adj``'s device as f32 and bool.  A CUDA ``adj`` (contiguous f32)
     launches ``csrc/mcop_phase.cu`` on the current stream without
-    synchronising; a CPU ``adj`` runs ``kernels.ref.mcop_phase_plain``.
+    synchronising (rows staged in shared memory up to n = 241, read from
+    device memory above); a CPU ``adj`` runs ``kernels.ref.mcop_phase_plain``.
     Raises ``ValueError`` for ``n > PHASE_MAX_N``.
     """
     from repro_torch.kernels.ref import mcop_phase_plain
@@ -512,17 +625,13 @@ def mcop_phase_packed(
         raise ValueError(f"no MCOP kernel for device {dev}")
     out = torch.empty((3,), dtype=torch.int32, device=dev)
     lib = _library("mcop_phase")
-    threads = min(256, max(32, (n + 31) // 32 * 32))
     with torch.cuda.device(dev):
         err = lib.repro_torch_phase_solve(
             adj.data_ptr(), gains.data_ptr(), alive.data_ptr(), src, ctot, n,
-            threads, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            _ROWS["staged"], out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise KernelError(
-            f"mcop_phase kernel launch refused (CUDA error {err}; n={n}, "
-            f"threads={threads})"
-        )
+        raise KernelError(f"mcop_phase kernel launch refused (CUDA error {err}; n={n})")
     LAUNCHES["mcop_phase_kernel"] += 1
     return out
 
@@ -540,3 +649,118 @@ def phase_result(packed: torch.Tensor) -> tuple[float, int, int]:
     device-to-host copy on a GPU."""
     host = packed.cpu()
     return float(host[0:1].view(torch.float32)[0]), int(host[1]), int(host[2])
+
+
+# ======================================================================
+# The per-phase tier's device loop (kernels.ops.mcop_min_cut)
+# ======================================================================
+
+# row strategies of the phase kernels: rows staged in shared memory where
+# the matrix fits, or read from device memory and L2
+_ROWS = {"staged": 0, "l2": 1}
+
+
+def _section(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+class LoopState:
+    """The state of ``kernels.ops.mcop_min_cut``'s loop after the pinned
+    fold, on one device, in one buffer (one upload, one read-back):
+
+    ``packed`` the working matrix's packed upper triangle (f32, padded to
+    16 bytes), ``wl``/``wc`` the merged node costs, ``gains`` scratch,
+    ``label`` (int32) the surviving vertex each original vertex merged
+    into, ``log`` ``(phases, 3)`` int32 ``(cut bits, s, t)`` of each phase,
+    ``scal`` int32 ``[anchor, best cut's f32 bits]`` (the best starts at
+    +inf), ``cloud`` (uint8) the best cut's cloud side, ``alive`` (uint8).
+    """
+
+    _SECTIONS = ("packed", "wl", "wc", "gains", "label", "log", "scal", "cloud", "alive")
+
+    def __init__(self, adj: np.ndarray, wl: np.ndarray, wc: np.ndarray,
+                 alive: np.ndarray, label: np.ndarray, src: int, phases: int, device):
+        n = int(wl.shape[0])
+        self.n, self.phases = n, phases
+        sizes = {"packed": tri_floats(n) * 4, "wl": 4 * n, "wc": 4 * n, "gains": 4 * n,
+                 "label": 4 * n, "log": 12 * phases, "scal": 8, "cloud": n, "alive": n}
+        offsets, at = {}, 0
+        for name in self._SECTIONS:
+            offsets[name] = at
+            at += _section(sizes[name])
+        host = np.zeros(at, np.uint8)
+
+        def view(buf, name, dtype, count):
+            o = offsets[name]
+            return buf[o:o + count * np.dtype(dtype).itemsize].view(dtype)
+
+        view(host, "packed", np.float32, tri_floats(n))[:] = pack_triangle(adj)
+        view(host, "wl", np.float32, n)[:] = wl
+        view(host, "wc", np.float32, n)[:] = wc
+        view(host, "label", np.int32, n)[:] = label
+        view(host, "scal", np.int32, 2)[:] = (src, np.float32(np.inf).view(np.int32))
+        view(host, "alive", np.uint8, n)[:] = alive
+        self.buffer = torch.from_numpy(host).to(device)
+        types = {"packed": (torch.float32, _section(sizes["packed"]) // 4),
+                 "wl": (torch.float32, n), "wc": (torch.float32, n),
+                 "gains": (torch.float32, n), "label": (torch.int32, n),
+                 "log": (torch.int32, 3 * phases), "scal": (torch.int32, 2),
+                 "cloud": (torch.uint8, n), "alive": (torch.uint8, n)}
+        for name, (dtype, count) in types.items():
+            o = offsets[name]
+            setattr(self, name, self.buffer[o:o + count * dtype.itemsize].view(dtype))
+        self._result = slice(offsets["scal"], offsets["cloud"] + n)
+        self._cloud_at = offsets["cloud"] - offsets["scal"]
+        # the step kernel's pointer arguments, in its order
+        self.pointers = tuple(getattr(self, name).data_ptr() for name in (
+            "packed", "wl", "wc", "gains", "label", "log", "scal", "alive", "cloud"))
+
+    def result(self) -> tuple[float, np.ndarray]:
+        """``(best cut, cloud mask)``: one device-to-host copy."""
+        host = self.buffer[self._result].cpu().numpy()
+        best = float(host[4:8].view(np.float32)[0])
+        return best, host[self._cloud_at:].astype(bool)
+
+    def read_log(self) -> list[tuple[float, int, int]]:
+        """The ``(cut, s, t)`` of every phase run so far, in order."""
+        log = self.log.view(-1, 3).cpu().numpy()
+        return [(float(np.int32(c).view(np.float32)), int(s), int(t)) for c, s, t in log]
+
+
+def mcop_phase_step(state: LoopState, phase: int, c_local_total: float, *,
+                    rows: str = "staged") -> None:
+    """Phase ``phase`` of ``kernels.ops.mcop_min_cut``'s loop and what the
+    host loop did after it, on ``state``'s device: one MinCutPhase from the
+    anchor, the strict-``<`` best-cut update with its cloud side (the
+    members of ``t``), the Algorithm-1 merge of ``t`` into ``s`` in f32
+    (``wl``/``wc`` too), the label update, the anchor moved when ``t`` was
+    the source, and ``(cut, s, t)`` written to row ``phase`` of the log.
+
+    A CUDA state launches ``csrc/mcop_phase.cu``'s step kernel on the
+    current stream and reads nothing back; ``rows`` picks where its rows
+    come from (``"staged"`` in shared memory, the default, or ``"l2"``;
+    the result is the same).  A CPU state runs
+    ``kernels.ref.mcop_phase_step_plain``.  The phase must have at least
+    two alive vertices (the loop runs alive − 1 phases after the fold).
+    """
+    from repro_torch.kernels.ref import mcop_phase_step_plain
+
+    if not 0 <= phase < state.phases:
+        raise ValueError(f"phase {phase} is outside the state's {state.phases} phases")
+    ctot = float(np.float32(c_local_total))
+    dev = state.buffer.device
+    if dev.type == "cpu":
+        mcop_phase_step_plain(state, phase, ctot)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"no MCOP kernel for device {dev}")
+    lib = _library("mcop_phase")
+    with torch.cuda.device(dev):
+        err = lib.repro_torch_phase_step(
+            *state.pointers, state.n, phase, ctot, _ROWS[rows],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise KernelError(
+            f"mcop_phase step kernel launch refused (CUDA error {err}; n={state.n})")
+    LAUNCHES["mcop_phase_kernel"] += 1

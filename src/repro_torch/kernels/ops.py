@@ -8,8 +8,8 @@ tensor (see the kernel modules).
 
 ``flash_attention``   — ``models.attention.chunked_attention`` is this.
 ``mamba_chunk_scan``  — the scan core of ``models.ssm.mamba2_forward``.
-``mcop_min_cut``      — MCOP with one phase-kernel launch per MinCutPhase
-                        and the Algorithm-1 merges between them.
+``mcop_min_cut``      — MCOP with one phase-kernel launch per MinCutPhase,
+                        each merging after its phase on the card.
 """
 
 from __future__ import annotations
@@ -19,7 +19,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.mamba_scan import mamba_chunk_scan_kernel
-from repro_torch.kernels.mcop_phase import mcop_phase_packed, phase_result, require_device
+from repro_torch.kernels.mcop_phase import (
+    PHASE_MAX_N, LoopState, mcop_phase_step, require_device,
+)
 
 __all__ = ["flash_attention", "mamba_chunk_scan", "mcop_min_cut"]
 
@@ -79,61 +81,82 @@ def mcop_min_cut(
     *,
     device: str | torch.device = "cuda",
 ) -> tuple[float, np.ndarray]:
-    """MCOP with each MinCutPhase on ``device``: one
-    :func:`~repro_torch.kernels.mcop_phase.mcop_phase_kernel` launch per
-    phase.  Returns ``(min_cut, local_mask over the original vertices)``.
+    """MCOP with each MinCutPhase on ``device``: one launch of the phase
+    kernel's step (``kernels.mcop_phase.mcop_phase_step``) per phase.
+    Returns ``(min_cut, local_mask over the original vertices)``.
 
-    The same loop as the JAX package's ``kernels.ops.mcop_min_cut``: the
+    The same loop as the JAX package's ``kernels.ops.mcop_min_cut``.  The
     pinned vertices are folded into the first of them (the anchor; vertex
-    0 if none), then while more than one vertex is alive a phase yields
-    ``(cut, s, t)``, a strictly smaller cut takes ``t``'s members as the
-    cloud side, and ``t`` is merged into ``s`` (the anchor follows a merged
-    source).  The adjacency is uploaded once and merged in place on the
-    device, the pinned fold included, in the reference's order and f32
-    arithmetic (row add, column add, ``adj[s, s] = 0``, row and column
-    ``t`` zeroed); per phase only the gains go up and ``(cut, s, t)`` come
-    back.  ``device="cpu"`` runs the
-    same loop on the plain version; the default needs a GPU and raises
-    ``KernelError`` without one.
+    0 if none) on the host, in the reference's order and f32 arithmetic;
+    that leaves ``alive − 1`` phases, a number known before the first one.
+    The folded graph goes to the device once, as the packed upper triangle
+    of its matrix with the merged weights, labels and anchor
+    (``LoopState``).  Each launch then runs one phase and, in the same
+    kernel, everything the host loop did after it: a strictly smaller cut
+    takes ``t``'s members as the cloud side, ``t`` is merged into ``s``
+    (row and column add, ``adj[s, s] = 0``, row and column ``t`` zeroed,
+    in f32), ``wl``/``wc`` follow, and the anchor follows a merged source.
+    The host issues the launches and reads nothing back until the end,
+    where one copy returns the best cut and its cloud mask.
+    ``device="cpu"`` runs the same loop on the plain version of the step;
+    the default needs a GPU and raises ``KernelError`` without one.  The
+    adjacency must be symmetric with a zero diagonal (``ValueError``
+    otherwise), and ``n <= PHASE_MAX_N``.
     """
+    cut, mask, _ = _min_cut_run(adj, w_local, w_cloud, offloadable, device=device)
+    return cut, mask
+
+
+def _min_cut_run(adj, w_local, w_cloud, offloadable, *, device="cuda",
+                 rows: str = "staged") -> tuple[float, np.ndarray, LoopState | None]:
+    """:func:`mcop_min_cut`, also returning its ``LoopState`` (``None``
+    when no phase runs), whose ``read_log()`` gives each phase's
+    ``(cut, s, t)`` to the checks and tests; ``rows`` is the step
+    kernel's row strategy."""
+    state, c_total = _min_cut_state(adj, w_local, w_cloud, offloadable, device=device)
+    if state is None:
+        return np.inf, np.ones(len(w_local), bool), None
+    for phase in range(state.phases):
+        mcop_phase_step(state, phase, c_total, rows=rows)
+    best_cut, cloud = state.result()
+    return best_cut, ~cloud, state
+
+
+def _min_cut_state(adj, w_local, w_cloud, offloadable, *,
+                   device="cuda") -> tuple[LoopState | None, float]:
+    """The loop's state on ``device`` after the pinned fold (``None`` when
+    it leaves fewer than two vertices) and ``C_local``."""
     dev = require_device(device)
+    adj = np.array(adj, np.float32)
     w_local = np.array(w_local, np.float32)
     w_cloud = np.array(w_cloud, np.float32)
     n = w_local.shape[0]
-    adj_d = torch.from_numpy(np.array(adj, np.float32)).to(dev)
-    alive_d = torch.ones(n, dtype=torch.bool, device=dev)
+    if adj.shape != (n, n):
+        raise ValueError(f"adj must be ({n}, {n}), got {adj.shape}")
+    if n > PHASE_MAX_N:
+        raise ValueError(
+            f"mcop_phase_kernel takes graphs of at most {PHASE_MAX_N} vertices, got n={n}")
+    if not np.array_equal(adj, adj.T) or np.any(np.diag(adj) != 0):
+        raise ValueError("adj must be symmetric with a zero diagonal (an undirected WCG)")
     alive = np.ones(n, bool)
-    label = np.arange(n)  # the surviving vertex each original vertex merged into
+    label = np.arange(n, dtype=np.int32)  # the surviving vertex each original vertex merged into
     c_total = float(w_local.sum())
 
-    def merge(s: int, t: int) -> None:
-        adj_d[s, :] += adj_d[t, :]
-        adj_d[:, s] += adj_d[:, t]
-        adj_d[s, s] = 0.0
-        adj_d[t, :] = 0.0
-        adj_d[:, t] = 0.0
-        alive_d[t] = False
-        w_local[s] += w_local[t]
-        w_cloud[s] += w_cloud[t]
-        label[label == t] = s
-        alive[t] = False
-
-    # fold the unoffloadable vertices into the anchor
+    # fold the unoffloadable vertices into the anchor: the reference's merges
     pinned = np.nonzero(~np.asarray(offloadable, bool))[0]
     src = int(pinned[0]) if pinned.size else 0
-    for other in pinned[1:]:
-        merge(src, int(other))
+    for t in pinned[1:]:
+        adj[src, :] += adj[t, :]
+        adj[:, src] += adj[:, t]
+        adj[src, src] = 0.0
+        adj[t, :] = 0.0
+        adj[:, t] = 0.0
+        w_local[src] += w_local[t]
+        w_cloud[src] += w_cloud[t]
+        label[label == t] = src
+        alive[t] = False
 
-    best_cut, best_cloud = np.inf, np.zeros(n, bool)
-    while alive.sum() > 1:
-        gains = torch.from_numpy(w_local - w_cloud).to(dev)
-        cut, s, t = phase_result(mcop_phase_packed(adj_d, gains, alive_d, src, c_total))
-        if cut < best_cut:
-            best_cut = cut
-            best_cloud = label == t
-        if s == t:  # degenerate single-alive-vertex phase
-            break
-        merge(s, t)
-        if t == src:
-            src = s
-    return best_cut, ~best_cloud
+    phases = int(alive.sum()) - 1
+    if phases < 1:
+        return None, c_total
+    return LoopState(adj, w_local, w_cloud, alive, label, src, phases, dev), c_total

@@ -14,8 +14,12 @@ on, the same function as its kernel (``csrc/flash_attention.cu``,
   JAX package's token recurrence ``ref.mamba_chunk_scan_reference``,
   computed in the chunked form the kernel uses.
 * :func:`mcop_phase_plain` — one MinCutPhase (the paper's Algorithm 3),
-  the plain version of ``csrc/mcop_phase.cu``.  Transcribes the JAX
-  package's ``ref.mcop_phase_reference`` and the Pallas body it checks.
+  the plain version of ``csrc/mcop_phase.cu``'s phase kernel.  Transcribes
+  the JAX package's ``ref.mcop_phase_reference`` and the Pallas body it
+  checks.
+* :func:`mcop_phase_step_plain` — the plain version of its step kernel:
+  one phase of ``kernels.ops.mcop_min_cut``'s loop on the loop's state
+  (``kernels.mcop_phase.LoopState``) and the merge after it.
 
 The kernel wrappers take these for CPU tensors; ``chip_smoke.py`` holds
 each kernel against its plain version on the card.
@@ -28,8 +32,10 @@ import math
 import torch
 
 from repro_torch.kernels.mcop_phase import NEG_INF as MCOP_NEG_INF
+from repro_torch.kernels.mcop_phase import triangle_index, unpack_triangle
 
-__all__ = ["NEG_INF", "flash_attention_plain", "mamba_chunk_scan_plain", "mcop_phase_plain"]
+__all__ = ["NEG_INF", "flash_attention_plain", "mamba_chunk_scan_plain", "mcop_phase_plain",
+           "mcop_phase_step_plain"]
 
 NEG_INF = -2.0**30
 _PLAIN_BLOCK_Q = 1024  # query rows scored at a time: bounds memory, not the result
@@ -147,3 +153,38 @@ def mcop_phase_plain(
     comm = (adj[t] * alive.to(f32)).sum()
     ctot = torch.as_tensor(c_local_total, dtype=f32, device=adj.device)
     return ctot - gains[t] + comm, s, t
+
+
+def mcop_phase_step_plain(state, phase: int, c_local_total: float) -> None:
+    """Phase ``phase`` of ``mcop_min_cut``'s loop on a ``LoopState`` whose
+    tensors lie on the CPU, in place: :func:`mcop_phase_plain` on the
+    unpacked working matrix from the state's anchor; a strictly smaller cut
+    becomes the best, with the members of ``t`` (``label == t``) as its
+    cloud side; ``t`` is merged into ``s`` on the packed matrix (row ``s`` +=
+    row ``t`` off ``{s, t}``, row ``t`` zeroed: the full matrix's Algorithm 1
+    in the same f32 additions), ``wl``/``wc`` of ``t`` are added into ``s``,
+    ``t``'s members are relabelled ``s``, the anchor follows a merged source,
+    and ``(cut bits, s, t)`` go to row ``phase`` of the log."""
+    n = state.n
+    src = int(state.scal[0])
+    cut, s, t = mcop_phase_plain(unpack_triangle(state.packed, n), state.wl - state.wc,
+                                 state.alive.to(torch.bool), src, c_local_total)
+    best = state.scal[1:2].view(torch.float32)
+    if bool(cut < best[0]):
+        best[0] = cut
+        state.cloud[:] = (state.label == t).to(torch.uint8)
+    idx = torch.arange(n)
+    on_s, on_t = triangle_index(s, idx, n), triangle_index(t, idx, n)
+    rest = (idx != s) & (idx != t)
+    packed = state.packed
+    packed[on_s[rest]] = packed[on_s[rest]] + packed[on_t[rest]]
+    packed[on_t[idx != t]] = 0.0
+    state.wl[s] += state.wl[t]
+    state.wc[s] += state.wc[t]
+    state.alive[t] = 0
+    state.label[state.label == t] = s
+    if t == src:
+        state.scal[0] = s
+    state.log[3 * phase] = cut.reshape(1).view(torch.int32)[0]
+    state.log[3 * phase + 1] = s
+    state.log[3 * phase + 2] = t

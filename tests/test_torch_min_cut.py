@@ -3,10 +3,14 @@
 ``repro_torch.kernels.ref.mcop_phase_plain`` (what the phase kernel's
 wrapper runs for CPU tensors) against the JAX package's Pallas phase
 kernel in interpret mode and its oracle ``ref.mcop_phase_reference``;
-``repro_torch.kernels.mcop_min_cut(device="cpu")`` against the JAX
-package's ``mcop_min_cut`` and against ``mcop_reference``.  ``(s, t)``
-and masks must be equal; cuts agree to ``rel=1e-5`` (f32 sums in another
-order, and the oracle finishes its cut in f64).
+``repro_torch.kernels.mcop_min_cut(device="cpu")`` (the device loop's
+state in CPU tensors, each phase and its merge by
+``kernels.ref.mcop_phase_step_plain``) against the JAX package's
+``mcop_min_cut`` and against ``mcop_reference``, phase by phase: the
+port's log of ``(cut, s, t)`` against what JAX's phase kernel returned
+on the same merged matrix inside JAX's loop.  ``(s, t)`` and masks must
+be equal; cuts agree to ``rel=1e-5`` (f32 sums in another order, and the
+oracle finishes its cut in f64).
 """
 
 import jax.numpy as jnp
@@ -15,12 +19,16 @@ import pytest
 import torch
 
 import repro.core as J
+import repro.kernels.ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.mcop_phase import mcop_phase_kernel as jax_phase
 from repro.kernels.ops import mcop_min_cut as jax_min_cut
 import repro_torch.core as T
 from repro_torch.kernels import mcop_min_cut, mcop_phase_kernel, mcop_phase_plain
-from repro_torch.kernels.mcop_phase import PHASE_MAX_N, mcop_phase_packed, phase_result
+from repro_torch.kernels.mcop_phase import (
+    PHASE_MAX_N, LoopState, mcop_phase_packed, mcop_phase_step, phase_result,
+)
+from repro_torch.kernels.ops import _min_cut_run
 
 MIN_CUT_CASES = [(5, 0), (8, 1), (12, 2), (15, 3), (10, 4)]
 
@@ -154,18 +162,30 @@ def test_phase_accepts_float_alive_and_tensor_scalars():
 @pytest.fixture(scope="module")
 def jax_min_cuts():
     """JAX's kernel-backed MCOP (interpret mode) at the reference test's
-    five (n, seed): one computation per module."""
-    out = {}
-    for n, seed in MIN_CUT_CASES:
-        g = J.random_wcg(n, rng=np.random.default_rng(seed + 100))
-        out[n, seed] = (g, jax_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable,
+    five (n, seed), and the ``(cut, s, t)`` its phase kernel returned in
+    each phase of its loop: one computation per module."""
+    out, logs = {}, {}
+    phase = jops.mcop_phase_kernel
+
+    def recorded(*args, **kwargs):
+        cut, s, t = phase(*args, **kwargs)
+        logs[key].append((float(cut), int(s), int(t)))
+        return cut, s, t
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jops, "mcop_phase_kernel", recorded)
+        for n, seed in MIN_CUT_CASES:
+            key = (n, seed)
+            logs[key] = []
+            g = J.random_wcg(n, rng=np.random.default_rng(seed + 100))
+            out[key] = (g, jax_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable,
                                        interpret=True))
-    return out
+    return {key: (*out[key], logs[key]) for key in out}
 
 
 @pytest.mark.parametrize("n,seed", MIN_CUT_CASES)
 def test_min_cut_matches_pallas_loop_and_reference(jax_min_cuts, n, seed):
-    g, (jax_cut, jax_mask) = jax_min_cuts[n, seed]
+    g, (jax_cut, jax_mask), _ = jax_min_cuts[n, seed]
     cut, mask = mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable, device="cpu")
     ref = J.mcop_reference(g)
     assert isinstance(cut, float) and mask.dtype == bool and mask.shape == (n,)
@@ -207,3 +227,87 @@ def test_phase_refuses_graphs_above_the_reference_bound():
         mcop_phase_kernel(big, np.zeros(PHASE_MAX_N + 1, np.float32),
                           np.ones(PHASE_MAX_N + 1, bool), 0, 0.0)
     assert PHASE_MAX_N * PHASE_MAX_N * 4 <= 12 * 2**20 < (PHASE_MAX_N + 1) ** 2 * 4
+
+
+@pytest.mark.parametrize("n,seed", MIN_CUT_CASES)
+def test_min_cut_phase_log_matches_pallas_phases(jax_min_cuts, n, seed):
+    """Each phase the device loop ran (its log, read back once at the end)
+    against JAX's phase kernel on the same merged matrix inside JAX's
+    loop: ``(s, t)`` equal, the cut to rounding, as many phases."""
+    g, (jax_cut, _), jax_log = jax_min_cuts[n, seed]
+    cut, mask, state = _min_cut_run(g.adj, g.w_local, g.w_cloud, g.offloadable, device="cpu")
+    log = state.read_log()
+    assert len(log) == len(jax_log) == state.phases
+    assert [(s, t) for _, s, t in log] == [(s, t) for _, s, t in jax_log]
+    for (c, _, _), (jc, _, _) in zip(log, jax_log):
+        assert c == pytest.approx(jc, rel=1e-5)
+    assert cut == min(c for c, _, _ in log)
+
+
+def test_min_cut_log_replays_on_the_phase_kernel():
+    """The loop's state after each phase is the reference's: replaying the
+    logged merges on the full matrix in numpy and running the phase
+    wrapper on it gives the next logged phase."""
+    g = J.random_wcg(11, n_unoffloadable=3, rng=np.random.default_rng(4))
+    _, _, state = _min_cut_run(g.adj, g.w_local, g.w_cloud, g.offloadable, device="cpu")
+    adj = np.asarray(g.adj, np.float32).copy()
+    wl, wc = np.asarray(g.w_local, np.float32).copy(), np.asarray(g.w_cloud, np.float32).copy()
+    alive = np.ones(g.n, bool)
+    pinned = np.nonzero(~np.asarray(g.offloadable, bool))[0]
+    src = int(pinned[0])
+
+    def merge(s, t):
+        adj[s, :] += adj[t, :]
+        adj[:, s] += adj[:, t]
+        adj[s, s] = 0.0
+        adj[t, :] = 0.0
+        adj[:, t] = 0.0
+        wl[s] += wl[t]
+        wc[s] += wc[t]
+        alive[t] = False
+
+    for t in pinned[1:]:
+        merge(src, int(t))
+    for cut, s, t in state.read_log():
+        got = _port_phase(adj, wl - wc, alive, src, float(np.asarray(g.w_local, np.float32).sum()))
+        assert got == (cut, s, t)
+        merge(s, t)
+        src = s if t == src else src
+
+
+def test_min_cut_with_no_phase_keeps_everything_local():
+    """All vertices pinned: the fold leaves one, no phase runs, the cut is
+    infinite and every vertex stays local, as in the JAX loop."""
+    g = J.random_wcg(6, rng=np.random.default_rng(2))
+    off = np.zeros(6, bool)
+    cut, mask = mcop_min_cut(g.adj, g.w_local, g.w_cloud, off, device="cpu")
+    jax_cut, jax_mask = jax_min_cut(g.adj, g.w_local, g.w_cloud, off, interpret=True)
+    assert cut == jax_cut == np.inf
+    assert mask.all() and (mask == jax_mask).all()
+
+
+@pytest.mark.parametrize("bad", ["asymmetric", "diagonal"])
+def test_min_cut_refuses_what_is_not_an_undirected_graph(bad):
+    g = J.random_wcg(6, rng=np.random.default_rng(3))
+    adj = np.array(g.adj)
+    if bad == "asymmetric":
+        adj[0, 1] += 1.0
+    else:
+        adj[2, 2] = 1.0
+    with pytest.raises(ValueError, match="symmetric with a zero diagonal"):
+        mcop_min_cut(adj, g.w_local, g.w_cloud, g.offloadable, device="cpu")
+
+
+def test_loop_state_layout_and_step_bounds():
+    g = J.random_wcg(7, rng=np.random.default_rng(5))
+    adj = np.asarray(g.adj, np.float32)
+    state = LoopState(adj, np.asarray(g.w_local, np.float32), np.asarray(g.w_cloud, np.float32),
+                      np.ones(7, bool), np.arange(7, dtype=np.int32), 3, 6, "cpu")
+    assert state.packed.dtype == torch.float32 and state.packed.numel() % 4 == 0
+    assert torch.equal(state.packed[:21], torch.from_numpy(adj[np.triu_indices(7, 1)]))
+    assert int(state.scal[0]) == 3 and state.log.shape == (18,)
+    best, cloud = state.result()
+    assert best == np.inf and not cloud.any()
+    for phase in (-1, 6):
+        with pytest.raises(ValueError, match="outside"):
+            mcop_phase_step(state, phase, 1.0)

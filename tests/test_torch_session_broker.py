@@ -339,5 +339,5 @@ def test_kernel_failures_raise_kernel_error(monkeypatch, tmp_path):
     with pytest.raises(build.KernelError, match="cannot load"):
         build.load("mcop_sw")
     with pytest.raises(build.KernelError, match="planning"):
-        K._plan(lambda n, out: 1, 16, 1, "cpu")
+        K._plan(lambda n, batch, graphs_per_block, out: 1, 16, 1)
     assert build._LIBS == {}

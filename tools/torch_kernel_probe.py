@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Measurements behind the design of the port's two prefill kernels, on one
-NVIDIA GPU (Hopper).  Diagnostic only: nothing here is imported by the
-package, and ``chip_smoke.py`` stays the check of record.
+"""Measurements behind the design of the port's kernels, on one NVIDIA GPU
+(Hopper).  Diagnostic only: nothing here is imported by the package, and
+``chip_smoke.py`` stays the check of record.
 
     python3 tools/torch_kernel_probe.py wgmma-layout    # descriptor fields of wgmma operands
     python3 tools/torch_kernel_probe.py flash-variants  # B4 at the prefill shape, by design knob
     python3 tools/torch_kernel_probe.py mamba-passes    # B5's four passes, device time each
+    python3 tools/torch_kernel_probe.py mcop-variants   # B1's warp body, by design knob
 
 ``wgmma-layout`` runs ``tools/torch_wgmma_probe.cu``: for no-swizzle K-major
 and MN-major operands, which (LBO, SBO) assignment gives the right product.
@@ -17,6 +18,16 @@ window 4096) and times each in the order A, B, ..., ..., B, A; variants
 that change the arithmetic are timings only, their error is printed.
 ``mamba-passes`` profiles one B5 call at the served prefill shape (f32 4 x
 64 heads x 32 chunks x 256, P = N = 64) and prints each pass's device time.
+``mcop-variants`` builds ``csrc/mcop_sw.cu`` as it is and with one knob of
+the warp body (``csrc/sw_common.cuh``) changed by a text edit (each row
+load paired with its add, without the guard value that makes the adds wait
+for all the loads; the warp argmax by a shuffle butterfly on (score, index)
+in place of the two redux.sync), checks that each gives the same bits, and
+times each at the solve plane's shapes (K = 4096 graphs of 64 vertices,
+K = 1024 of 256) in the order A, B, C, C, B, A; then it runs
+``tools/torch_latency_probe.cu``: SM cycles per dependent redux.sync (max,
+min), shuffle, ballot, shared-memory load and integer multiply-add on a
+warp alone on its SM, the links an absorb step chains together.
 Everything is built into ``build/repro_torch/probe/`` with ``nvcc``.
 """
 
@@ -215,10 +226,105 @@ def mamba_passes() -> dict:
             "call_ms": cuda_ms(lambda: mamba_chunk_scan_kernel(*args))}
 
 
+CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
+MCOP_VARIANTS = {
+    "as built": [],
+    "loads paired with their adds": [("conn[k] + (r[k] + g)", "conn[k] + r[k]")],
+    "argmax by shuffle butterfly": [(
+        "    const int v = warp_argmax(score_key(sc[0]), ix[0]);",
+        "    float bs = sc[0];\n    int v = ix[0];\n"
+        "    for (int o = 16; o > 0; o >>= 1) {\n"
+        "      const float os = __shfl_xor_sync(kFull, bs, o);\n"
+        "      const int oi = __shfl_xor_sync(kFull, v, o);\n"
+        "      if (os > bs || (os == bs && oi < v)) { bs = os; v = oi; }\n    }")],
+}
+
+
+def mcop_variants() -> dict:
+    import numpy as np
+
+    header = open(os.path.join(CSRC, "sw_common.cuh")).read()
+    procs = {}
+    for i, (name, edits) in enumerate(MCOP_VARIANTS.items()):
+        text = header
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
+            text = text.replace(old, new)
+        vdir = os.path.join(OUT, f"mcop_{i}")
+        os.makedirs(vdir, exist_ok=True)
+        with open(os.path.join(vdir, "sw_common.cuh"), "w") as f:
+            f.write(text)
+        src = os.path.join(vdir, "mcop_sw.cu")
+        with open(src, "w") as f:
+            f.write(open(os.path.join(CSRC, "mcop_sw.cu")).read())
+        procs[name] = (src[:-3] + ".so", nvcc(src, src[:-3] + ".so"))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(log)
+        lib = ctypes.CDLL(so)
+        lib.repro_torch_sw_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.repro_torch_sw_solve.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        libs[name] = lib
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import random_batch
+
+    rows = []
+    for n, k in ((64, 4096), (256, 1024)):
+        adj, wl, wc, pin = (torch.from_numpy(a).cuda()
+                            for a in random_batch(np.random.default_rng(n), k, n))
+        cuts = {name: torch.empty(k, device="cuda") for name in libs}
+        masks = {name: torch.empty((k, n), dtype=torch.bool, device="cuda") for name in libs}
+
+        def run(name):
+            lib, plan = libs[name], (ctypes.c_int * 5)()
+            if lib.repro_torch_sw_plan(n, k, 0, plan):
+                raise SystemExit(f"{name}: plan failed")
+            cpl, threads, smem, resident, gpb = plan
+            err = lib.repro_torch_sw_solve(
+                adj.data_ptr(), wl.data_ptr(), wc.data_ptr(), pin.data_ptr(),
+                cuts[name].data_ptr(), masks[name].data_ptr(), 0, k, n,
+                min(-(-k // gpb), resident), threads, cpl, smem,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"{name}: CUDA error {err}")
+
+        names = list(libs)
+        times = {name: [] for name in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                times[name].append(cuda_ms(lambda: run(name), reps=3))
+        for name in names:
+            rows.append({"variant": name, "shape": [k, n], "ms": times[name],
+                         "same_bits": bool(torch.equal(cuts[name], cuts["as built"])
+                                           and torch.equal(masks[name], masks["as built"]))})
+    so = os.path.join(OUT, "latency_probe.so")
+    proc = nvcc(os.path.join(ROOT, "tools", "torch_latency_probe.cu"), so)
+    log, _ = proc.communicate()
+    if proc.returncode:
+        raise SystemExit(log)
+    lat = ctypes.CDLL(so)
+    lat.latency_probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(32, dtype=torch.int32, device="cuda")
+    iters, latency = 4096, {}
+    for which, name in enumerate(("redux_max", "redux_min", "shfl", "ballot", "lds", "imad")):
+        for _ in range(2):  # the first run warms up
+            if lat.latency_probe(which, iters, cycles.data_ptr(), sink.data_ptr()):
+                raise SystemExit("latency probe launch failed")
+        torch.cuda.synchronize()
+        latency[name] = int(cycles.item()) / iters
+    return {"probe": "mcop-variants", "rows": rows, "cycles_per_dependent_op": latency}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("probes", nargs="+", choices=("wgmma-layout", "flash-variants",
-                                                      "mamba-passes"))
+                                                      "mamba-passes", "mcop-variants"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
@@ -226,7 +332,7 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     print(gpu_line(), flush=True)
     run = {"wgmma-layout": wgmma_layout, "flash-variants": flash_variants,
-           "mamba-passes": mamba_passes}
+           "mamba-passes": mamba_passes, "mcop-variants": mcop_variants}
     for name in args.probes:
         print(json.dumps(run[name]()), flush=True)
     return 0
