@@ -18,6 +18,16 @@ one JSON object per line:
                       graphs-a-block settings (bits equal), the fused kernel
                       against the solve kernel fed with ``batch_weights``,
                       and samples against the f64 oracle.
+   ``near_symmetric`` — adjacencies symmetric only to a tolerance: the n = 5
+                      input that told B1's warp variant from the reference,
+                      and 240 perturbed integer graphs, through
+                      ``mcop_batch``, ``mcop`` and ``mcop_min_cut`` on the card
+                      (B1's full-row variant, B3's full loop state), masks
+                      equal to the f64 reference's (where the plain version
+                      on the CPU departs too, an f32 tie, equal to its mask);
+                      B1 on both sides of the packed limit and the loop's
+                      phase log at n = 200, 256 and 300 against the plain
+                      versions.
 3. ``model_kernel_checks`` — the flash-attention kernel (B4) and the Mamba2
                       scan kernel (B5) against their plain versions at the
                       hybrid model's prefill shapes and at GQA, odd-length
@@ -31,6 +41,22 @@ one JSON object per line:
                       ``tick_sessions``, and a replay of the same workload on
                       the f64 reference backend that every placement must
                       match.
+   ``solver_fleet`` — the solver fleet (``core/mcop_shard.py``) on a mesh of
+                      four repeated ``cuda:0`` entries (every GPU where the
+                      host has several) against the unsharded
+                      (``mesh=False``) solve, every cut and mask bit for bit:
+                      ``solve_envs``
+                      with both kernels at K = 13, 4096 (n = 64) and 1024
+                      (n = 256), ``mcop_batch`` over 2048 graphs of 5-200
+                      vertices and 16 of the first n above the packed limit,
+                      one ``tick_sessions`` tick of 100 000 sessions and its
+                      empty-miss tick (no launch); a one-device mesh and
+                      ``mesh=None`` (one launch) against it; one shard span a
+                      shard and one launch a
+                      shard holding a row; then two elastic resizes of
+                      zamba2-1.2b's stage graph through a broker's elastic
+                      lane, each plan equal to a synchronous reference
+                      resize.
 6. ``serve``        — zamba2-1.2b at full width in bf16 (random weights from
                       seed 0): the placement report of ``launch/serve.py``,
                       then 8 requests of 4608-8192 prompt tokens through the
@@ -60,8 +86,9 @@ one JSON object per line:
                       journal and snapshots, whose replies ``==`` the run that
                       was not killed.  Ticks/s and round-trip ms per submit.
 
-Three main paths, each driven with every launch counter set to 0 just before
-it and read just after: phases 4-5 (the broker tick: B1, B2), phase 6
+Four main paths, each driven with every launch counter set to 0 just before
+it and read just after: phases 4-5 (the broker tick: B1, B2), phase
+``solver_fleet`` (B1 and B2 once per shard holding a row), phase 6
 (serving: B4 19 times and B5 38 times per prefill; one B5 call is four
 launches of its passes, counted once) and phase 8 (the per-phase tier: B3
 once per MinCutPhase).  A kernel of a path that was not
@@ -74,7 +101,7 @@ solve-plane shapes (kernel time x graphs the card works on at once / absorb
 steps) and of B3, and B3's absorb steps over the per-phase path, with its
 kernel time estimated from them and the device loop's timed shapes; a
 ``{"kernels": [...]}`` line gives, for all five kernels, its launches on
-its main path, its measured time, its plain version's measured time, the
+its main path (B1 and B2 also on the fleet path), its measured time, its plain version's measured time, the
 time of one PyTorch call computing the same function where there is one,
 and its roofline bound at the main path's shape (B4 and B5 also their
 achieved TFLOP/s and share of the bound; B5's bound against the TF32 rate
@@ -134,6 +161,7 @@ PLANE = ((64, 4096, "weighted"), (256, 1024, "time"))   # (n, K, cost model)
 HETERO = (2048, 5, 200)            # graphs, smallest, largest
 BROKER = {"u": 100_000, "users_b": 256, "steps_b": 6, "n_b": 64, "replay_u": 2_000}
 LINE_SHAPE = (64, 4096)            # (n, K) of the per-kernel line
+FLEET_REPS = 5                     # host-clock readings of each fleet call
 BROKER_PATH_KERNELS = ("mcop_stoer_wagner_kernel", "mcop_fused_solve_kernel")
 
 # flash-attention checks: (B, H, Hkv, Sq, Sk, hd, causal, window, dtype,
@@ -199,10 +227,13 @@ REPLAY = {"requests": 4, "max_batch": 2, "prompt": (4100, 4608), "new_tokens": 8
 # `workers` processes solve meanwhile; the device loop's phase log against
 # the CPU loop's on every `log_every`-th graph and on one graph of `block_n`
 # vertices (B3's block variant); B3, the device loop (both row strategies)
-# and the loop timed at time_n, the kernels line at line_n
-MIN_CUT = {"phase_n": (6, 16, 64, 256, 1024), "graphs": 100, "sizes": (5, 256),
+# and the loop timed at time_n, the kernels line at line_n; the loop on a
+# full state (near-symmetric graphs: rows staged, rows from L2, the block
+# variant) against the CPU loop at near_symmetric_n
+MIN_CUT ={"phase_n": (6, 16, 64, 256, 1024), "graphs": 100, "sizes": (5, 256),
            "seed": 1000, "workers": 6, "time_n": (64, 256), "line_n": 256,
-           "time_reps": 20, "loop_reps": 3, "log_every": 10, "block_n": 300}
+           "time_reps": 20, "loop_reps": 3, "log_every": 10, "block_n": 300,
+           "near_symmetric_n": (200, 256, 300)}
 # the broker behind a process boundary: `sessions` per-user sessions through
 # `ticks` ticks of the demo tenant (`nodes` vertices), a batch group of
 # `capacity` slots from tick `group_tick` on; the second server SIGKILLs
@@ -559,6 +590,179 @@ def phase_kernel_checks(rng) -> dict:
 
 
 # ----------------------------------------------------------------------
+# Phase 2, part two: adjacencies symmetric only to a tolerance
+# ----------------------------------------------------------------------
+
+
+def queue_c_graph():
+    """The input that told B1's warp variant from the reference (n = 5,
+    vertex 0 pinned): integer weights, the lower triangle the upper one
+    times (1 +- 5e-6).  ``WCG`` accepts it (``np.allclose``)."""
+    from repro_torch.core.graph import WCG
+
+    adj = np.zeros((5, 5))
+    for i, j, w in ((0, 2, 2), (0, 3, 3), (0, 4, 1), (1, 3, 1), (1, 4, 2), (2, 3, 1), (2, 4, 2)):
+        adj[i, j] = w
+    adj += adj.T
+    for (i, j), v in {(2, 0): 2.00001, (3, 0): 2.999985, (3, 1): 1.000005,
+                      (3, 2): 1.000005, (4, 0): 0.999995, (4, 1): 1.99999,
+                      (4, 2): 1.99999}.items():
+        adj[i, j] = v
+    return WCG([5, 5, 5, 3, 3], [0, 1, 0, 2, 1], adj, np.arange(5) != 0)
+
+
+def perturbed_graphs(rng, count: int, sizes=(4, 8)):
+    """Integer WCGs of ``sizes`` vertices whose lower triangle is the upper
+    one times (1 +- 5e-6), one or two vertices pinned: the exact ties of
+    small integer weights, each broken by the direction it is read in."""
+    from repro_torch.core.graph import WCG
+
+    out = []
+    for _ in range(count):
+        n = int(rng.integers(sizes[0], sizes[1] + 1))
+        up = np.triu(rng.integers(0, 4, (n, n)).astype(np.float64), 1)
+        sign = rng.choice([-1.0, 1.0], (n, n))
+        off = np.ones(n, bool)
+        off[0] = False
+        if rng.random() < 0.3:
+            off[rng.integers(1, n)] = False
+        out.append(WCG(rng.integers(0, 6, n).astype(np.float64),
+                       rng.integers(0, 3, n).astype(np.float64),
+                       up + (up * (1 + sign * 5e-6)).T, off))
+    return out
+
+
+def near_symmetric_batch(rng, b: int, n: int):
+    """``random_batch`` with each lower triangle times (1 +- 5e-6)."""
+    adj, wl, wc, pin = random_batch(rng, b, n, edge_prob=check_density(b, n))
+    lower = np.tril(np.ones((n, n), bool), -1)
+    noise = 1 + rng.choice([-5e-6, 5e-6], adj.shape)
+    return np.where(lower, adj * noise, adj).astype(np.float32), wl, wc, pin
+
+
+def phase_near_symmetric(rng) -> dict:
+    """B1 (``mcop_batch``, ``mcop``) and the per-phase loop (``mcop_min_cut``,
+    B3) on adjacencies that ``WCG`` accepts as symmetric but that are not
+    exactly symmetric: each such graph of a bucket goes to B1's full-row
+    variant and to a full loop state.  Masks against the f64 reference: equal,
+    except where the plain version on the CPU (the same algorithm in f32)
+    departs from the reference too, where the card must give the plain
+    version's mask (an f32-resolution tie, counted).  The warp variant fed
+    the same batch (it reads the upper triangle) is counted beside it."""
+    from repro_torch.core.graph import WCG
+    from repro_torch.core.mcop import mcop, mcop_batch, mcop_reference
+    from repro_torch.kernels import mcop_phase as K
+    from repro_torch.kernels.ops import _min_cut_run, mcop_min_cut
+
+    out = {"phase": "near_symmetric"}
+    g = queue_c_graph()
+    ref = mcop_reference(g)
+    got = {
+        "mcop_batch": mcop_batch([g], backend="cuda", device=DEVICE)[0],
+        "mcop": mcop(g, backend="cuda", device=DEVICE),
+    }
+    cut, mask = mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable, device=DEVICE)
+    out["queue_c_input"] = {"reference": [ref.min_cut, ref.local_mask.astype(int).tolist()]}
+    for name, (c, m) in {**{k: (r.min_cut, r.local_mask) for k, r in got.items()},
+                         "mcop_min_cut": (cut, mask)}.items():
+        out["queue_c_input"][name] = [c, m.astype(int).tolist()]
+        if not np.array_equal(m, ref.local_mask) or abs(c - ref.min_cut) > RTOL * ref.min_cut:
+            raise AssertionError(f"near_symmetric: {name} gave {c} {m} on the n=5 input")
+
+    graphs = perturbed_graphs(rng, 240)
+    refs = [mcop_reference(x) for x in graphs]
+    plain = mcop_batch(graphs, backend="torch", device="cpu")
+    batch = mcop_batch(graphs, backend="cuda", device=DEVICE)
+    fronts = [mcop(x, backend="cuda", device=DEVICE) for x in graphs]
+    loops = [mcop_min_cut(x.adj, x.w_local, x.w_cloud, x.offloadable, device=DEVICE)
+             for x in graphs]
+    # what the warp variant answers for the same bucket (upper triangle)
+    packed = [np.zeros((len(graphs), 16, 16), np.float32), np.zeros((len(graphs), 16), np.float32),
+              np.zeros((len(graphs), 16), np.float32), np.ones((len(graphs), 16), bool)]
+    for i, x in enumerate(graphs):
+        packed[0][i, :x.n, :x.n] = x.adj
+        packed[1][i, :x.n], packed[2][i, :x.n] = x.w_local, x.w_cloud
+        packed[3][i, :x.n] = ~x.offloadable
+    warp = to_host(K.mcop_stoer_wagner_kernel(*to_dev(packed)))
+    counts = {"graphs": len(graphs), "f32_ties": 0, "warp_variant_departs": 0}
+    for i, (x, r, p) in enumerate(zip(graphs, refs, plain)):
+        tie = not np.array_equal(p.local_mask, r.local_mask)
+        want = p.local_mask if tie else r.local_mask
+        counts["f32_ties"] += tie
+        counts["warp_variant_departs"] += not np.array_equal(warp[1][i, :x.n], r.local_mask)
+        for name, (c, m) in (("mcop_batch", (batch[i].min_cut, batch[i].local_mask)),
+                             ("mcop", (fronts[i].min_cut, fronts[i].local_mask)),
+                             ("mcop_min_cut", loops[i])):
+            if not np.array_equal(m, want) or abs(c - r.min_cut) > RTOL * (abs(r.min_cut) + 1):
+                raise AssertionError(
+                    f"near_symmetric: {name} graph {i}: {c} {m.astype(int)} vs reference "
+                    f"{r.min_cut} {r.local_mask.astype(int)} (plain {p.local_mask.astype(int)})")
+    out["perturbed"] = counts
+
+    # one bucket of both kinds: its exactly symmetric graphs keep the warp
+    # variant and the others take full rows (two launches), each answer
+    # scattered back to its row with the bits it has in a bucket of its kind
+    sym = []
+    for n in rng.integers(4, 9, 40):
+        adj, wl, wc, pin = random_batch(rng, 1, int(n))
+        sym.append(WCG(wl[0], wc[0], adj[0], ~pin[0]))
+    mixed = [x for pair in zip(graphs[:40], sym) for x in pair]
+    before = K.LAUNCHES["mcop_stoer_wagner_kernel"]
+    got_mixed = mcop_batch(mixed, backend="cuda", device=DEVICE)
+    launched = K.LAUNCHES["mcop_stoer_wagner_kernel"] - before
+    alone = [r for pair in zip(batch[:40], mcop_batch(sym, backend="cuda", device=DEVICE))
+             for r in pair]
+    if launched != 2 or any(a.min_cut != b.min_cut or not np.array_equal(a.local_mask, b.local_mask)
+                            for a, b in zip(got_mixed, alone)):
+        raise AssertionError(f"near_symmetric: a mixed bucket ({launched} launches) "
+                             "differs from its graphs solved by kind")
+    out["mixed_bucket"] = {"graphs": len(mixed), "launches": launched}
+
+    # both sides of B1's packed limit, and B3's full loop state above n = 241
+    limit = K.packed_limit(DEVICE)
+    sides = []
+    for n, b in ((limit, 8), (limit + 1, 4)):
+        host = near_symmetric_batch(rng, b, n)
+        dev = to_dev(host)
+        got_k = to_host(K.mcop_stoer_wagner_kernel(*dev, full_rows=True))
+        want_k, plain_ms = timed(lambda: K.stoer_wagner_plain(*dev))
+        sides.append({"n": n, "graphs": b, "plain_ms": plain_ms,
+                      **hold_equal(f"near_symmetric sw n={n}", got_k, to_host(want_k),
+                                   *host[:3])})
+    out["packed_limit_sides"] = sides
+    logs = []
+    for n in MIN_CUT["near_symmetric_n"]:
+        adj, wl, wc, pin = near_symmetric_batch(rng, 1, n)
+        x = WCG(wl[0], wc[0], adj[0], ~pin[0])
+        logs.append(hold_phase_log(f"near_symmetric n={n}", x, _min_cut_run))
+        if not _min_cut_run(x.adj, x.w_local, x.w_cloud, x.offloadable,
+                            device="cpu")[2].full:
+            raise AssertionError("near_symmetric: the loop state is not full")
+    out["min_cut_logs"] = logs
+
+    # what the full-row routes cost: B1's block variant against the warp
+    # variant on one symmetric batch at the per-kernel line's shape, and the
+    # device loop on a full state (rows staged up to n = 241, from L2 above)
+    n, k = LINE_SHAPE
+    dev = to_dev(random_batch(rng, k, n))
+    same = [to_host(K.mcop_stoer_wagner_kernel(*dev, full_rows=f)) for f in (False, True)]
+    hold_equal("near_symmetric full rows vs warp", same[1], same[0],
+               *(t.cpu().numpy() for t in dev[:3]))
+    out["full_rows_cost"] = {
+        "shape": [k, n],
+        "warp_ms": cuda_ms(lambda: K.mcop_stoer_wagner_kernel(*dev), reps=3),
+        "full_rows_ms": cuda_ms(lambda: K.mcop_stoer_wagner_kernel(*dev, full_rows=True),
+                                reps=3),
+        "device_loop": []}
+    for n in MIN_CUT["time_n"]:
+        adj, wl, wc, pin = near_symmetric_batch(rng, 1, n)
+        x = WCG(wl[0], wc[0], adj[0], ~pin[0])
+        out["full_rows_cost"]["device_loop"].append(
+            {"n": n, **device_loop_ms(x, reps=MIN_CUT["loop_reps"])})
+    return out
+
+
+# ----------------------------------------------------------------------
 # Phase 3: solve plane at full size
 # ----------------------------------------------------------------------
 
@@ -826,6 +1030,232 @@ def phase_broker(rng) -> dict:
                      "events_checked": sum(len(e) for e in want[1])
                      + sum(int(r.active.sum()) for r in want[0]),
                      "tie_masks": ties}
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 5b: the solver fleet (a mesh of repeated cuda:0 entries)
+# ----------------------------------------------------------------------
+
+
+def hold_results(tag, got, want) -> None:
+    """Sharded against unsharded: every cut and mask bit for bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} results for {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not (np.float32(a.min_cut).view(np.int32) == np.float32(b.min_cut).view(np.int32)
+                and np.array_equal(a.local_mask, b.local_mask)):
+            raise AssertionError(f"{tag}: result {i} differs from the unsharded solve")
+
+
+def fleet_call(fn, tag, shards, *, spans, stage, rows):
+    """Run one sharded call; return its results after checking its shard
+    spans (one per shard, the reference's real rows each) and its launches
+    (one per shard holding a real row)."""
+    from repro_torch.obs.trace import Tracer
+
+    tracer = Tracer()
+    before = dict(all_launches())
+    res = fn(tracer)
+    launched = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
+    got = [(s.attrs["shard"], s.attrs["devices"], s.attrs["rows"])
+           for s in tracer.spans(f"{stage}.shard")]
+    want = []
+    for k in rows:
+        want += [(s, shards, len(range(s, k, shards))) for s in range(shards)]
+    if got != want:
+        raise AssertionError(f"{tag}: shard spans {got}, expected {want}")
+    expected = sum(min(k, shards) for k in rows)
+    if sum(launched.values()) != expected:
+        raise AssertionError(f"{tag}: {launched} launches, expected {expected}")
+    spans.append({"call": tag, "spans": len(got), "launches": launched})
+    return res
+
+
+def fleet_seconds(unsharded, sharded, reps: int = FLEET_REPS) -> dict:
+    """Host seconds of ``reps`` calls of each, in turns (unsharded first),
+    each ending in its read-back: the medians and every reading (a call of
+    tens of ms on this host varies by up to ~2x from one reading to the
+    next)."""
+    got = {"unsharded": [], "sharded": []}
+    for _ in range(reps):
+        for key, fn in (("unsharded", unsharded), ("sharded", sharded)):
+            t0 = time.perf_counter()
+            fn()
+            got[key].append(time.perf_counter() - t0)
+    return {"unsharded_s": float(np.median(got["unsharded"])),
+            "sharded_s": float(np.median(got["sharded"])), "readings": got}
+
+
+def phase_solver_fleet(rng, devices=None) -> dict:
+    """The solver fleet on the card: a one-device mesh and ``mesh=None``
+    (one launch: auto never shards) against ``mesh=False``, and a mesh of
+    ``devices`` (default: every GPU when there are two or more, else four
+    repeated ``cuda:0`` entries) against the unsharded (``mesh=False``)
+    solve on the first card, bits ``==``, in
+    ``solve_envs`` (both kernels), ``mcop_batch`` and a ``tick_sessions``
+    tick with its empty-miss tick; then elastic resizes through a broker's
+    elastic lane against synchronous reference resizes."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cost_models import ResponseTimeModel, WeightedModel
+    from repro_torch.core.graph import WCG
+    from repro_torch.core.mcop import mcop_batch, solve_envs
+    from repro_torch.core.placement import TPUV5E_TIER
+    from repro_torch.core.placement_cache import PlacementCache
+    from repro_torch.core.session_batch import SessionBatch, tick_sessions
+    from repro_torch.kernels import mcop_phase
+    from repro_torch.launch.mesh import make_solver_mesh
+    from repro_torch.profilers.program import stage_specs
+    from repro_torch.runtime import ElasticMeshManager
+    from repro_torch.service import OffloadBroker, TrafficGenerator
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    fleet = make_solver_mesh(devices or ([f"{DEVICE}:{i}" for i in range(count)]
+                                         if count > 1 else [f"{DEVICE}:0"] * 4))
+    shards = len(fleet.devices)
+    one = make_solver_mesh([DEVICE])
+    out = {"phase": "solver_fleet", "devices": [str(d) for d in fleet.devices],
+           "calls": [], "spans": []}
+    spans = out["spans"]
+    reset_all_launches()  # ---- the fleet path starts here ----
+    models = {"weighted": WeightedModel(0.5), "time": ResponseTimeModel()}
+    for n, k, kind in ((64, 13, "weighted"), *PLANE):
+        profile = random_profile(rng, n)
+        envs = random_envs(rng, k)
+        for backend in ("cuda", "cuda_fused"):
+            model = models[kind]
+            args = (profile, model, envs)
+            kw = {"backend": backend, "device": DEVICE}
+            base = solve_envs(*args, **kw, mesh=False)
+            sharded = fleet_call(
+                lambda tr: solve_envs(*args, **kw, mesh=fleet, tracer=tr),
+                f"solve_envs {backend} K={k} n={n}", shards, spans=spans,
+                stage="solve_envs", rows=[k])
+            hold_results(f"solve_envs {backend} K={k} n={n}", sharded, base)
+            call = {"entry": "solve_envs", "backend": backend, "n": n, "k": k,
+                    **fleet_seconds(lambda: solve_envs(*args, **kw, mesh=False),
+                                    lambda: solve_envs(*args, **kw, mesh=fleet))}
+            if (n, k) == LINE_SHAPE:
+                t0 = time.perf_counter()
+                single = solve_envs(*args, **kw, mesh=one)
+                call["one_device_mesh_s"] = time.perf_counter() - t0
+                hold_results(f"solve_envs {backend} one-device mesh", single, base)
+                # auto never shards, even where the host has a fleet
+                before = sum(all_launches().values())
+                hold_results(f"solve_envs {backend} mesh=None",
+                             solve_envs(*args, **kw, mesh=None), base)
+                if sum(all_launches().values()) - before != 1:
+                    raise AssertionError(f"solve_envs {backend} mesh=None: not one launch")
+            out["calls"].append(call)
+
+    # mcop_batch: the solve plane's heterogeneous graphs, and the block variant
+    sizes = rng.integers(HETERO[1], HETERO[2] + 1, HETERO[0])
+    graphs = []
+    for n in sizes:
+        adj, wl, wc, pin = random_batch(rng, 1, int(n))
+        graphs.append(WCG(wl[0], wc[0], adj[0], ~pin[0]))
+    wide = []
+    limit = mcop_phase.packed_limit(DEVICE)
+    for _ in range(16):
+        adj, wl, wc, pin = random_batch(rng, 1, limit + 1, edge_prob=check_density(1, limit + 1))
+        wide.append(WCG(wl[0], wc[0], adj[0], ~pin[0]))
+    for tag, gs, buckets in (("mcop_batch 2048 graphs", graphs, (16, 64, 256)),
+                             ("mcop_batch 16 graphs n=342", wide, (limit + 1,))):
+        base = mcop_batch(gs, backend="cuda", device=DEVICE, buckets=buckets, mesh=False)
+        per_bucket = {}
+        for x in gs:
+            m = next((b for b in buckets if x.n <= b), None)
+            per_bucket[m] = per_bucket.get(m, 0) + 1
+        sharded = fleet_call(
+            lambda tr: mcop_batch(gs, backend="cuda", device=DEVICE, buckets=buckets,
+                                  mesh=fleet, tracer=tr),
+            tag, shards, spans=spans, stage="solve",
+            rows=[per_bucket[b] for b in sorted(per_bucket)])
+        hold_results(tag, sharded, base)
+        out["calls"].append({"entry": tag, **fleet_seconds(
+            lambda: mcop_batch(gs, backend="cuda", device=DEVICE, buckets=buckets,
+                               mesh=False),
+            lambda: mcop_batch(gs, backend="cuda", device=DEVICE, buckets=buckets,
+                               mesh=fleet), reps=3)})
+
+    # tick_sessions: the broker phase's 100 000-session face-profile group
+    u = BROKER["u"]
+    gen = TrafficGenerator(u, seed=7, arrival_rate=max(1.0, 0.02 * u), churn=0.02, initial=u)
+    first = gen.step()
+
+    def drive(mesh, tracer=None):
+        """Two ticks: the arrivals, then the same environments again (no
+        miss: the cooldown holds every session).  Returns the reports, the
+        cache counters and the launches of each tick."""
+        batch = SessionBatch.create(u, 9, threshold=0.15, min_interval=2)
+        batch.activate(first.arrived)
+        cache = PlacementCache()
+        reps, launched = [], []
+        for t in range(2):
+            before = sum(all_launches().values())
+            reps.append(tick_sessions(
+                batch, first.envs, profile=face_profile(), model=ResponseTimeModel(),
+                cache=cache, backend="cuda_fused", device=DEVICE, mesh=mesh,
+                tracer=tracer, tick=t))
+            launched.append(sum(all_launches().values()) - before)
+        return reps, cache.stats, launched
+
+    t0 = time.perf_counter()
+    base, stats_1, _ = drive(False)
+    t_base = time.perf_counter() - t0
+    solved = base[0].solved
+    t0 = time.perf_counter()
+    sharded, stats_sh, launched = fleet_call(
+        lambda tr: drive(fleet, tr), "tick_sessions", shards, spans=spans,
+        stage="solve_envs", rows=[solved])
+    t_fleet = time.perf_counter() - t0
+    if stats_sh != stats_1:
+        raise AssertionError(f"tick_sessions: cache counters {stats_sh} vs {stats_1}")
+    for t, (rs, r1) in enumerate(zip(sharded, base)):
+        for f in ("active", "repartitioned", "cache_hit", "placements", "min_cut",
+                  "partial_cost", "no_offload_cost", "full_offload_cost", "gain"):
+            a, b = getattr(rs, f), getattr(r1, f)
+            if not np.array_equal(a, b, equal_nan=b.dtype.kind == "f"):
+                raise AssertionError(f"tick_sessions tick {t}: {f} differs")
+        if (rs.hits, rs.solved, rs.coalesced, rs.due) != (r1.hits, r1.solved, r1.coalesced, r1.due):
+            raise AssertionError(f"tick_sessions tick {t}: counts differ")
+    if not (solved > 0 and sharded[1].solved == 0 and launched[1] == 0):
+        raise AssertionError(f"tick_sessions: tick 0 solved {solved}, the empty-miss tick "
+                             f"solved {sharded[1].solved} and launched {launched[1]}")
+    out["calls"].append({"entry": "tick_sessions", "sessions": u, "solved": solved,
+                         "second_tick": {"solved": 0, "launches": 0},
+                         "unsharded_s": t_base, "sharded_s": t_fleet})
+    out["main_path_launches"] = {k: v for k, v in all_launches().items()}
+    # ---- and ends here ----
+
+    # elastic resizes on the broker's elastic lane against reference resizes
+    cfg = get_config(SERVE["arch"])
+    stages = stage_specs(cfg, ShapeConfig("cli", "decode", 4096, SERVE["max_batch"]),
+                         group=max(cfg.n_layers // 8, 1))
+    tl = dc.replace(TPUV5E_TIER, name="decode-pool", chips=64)
+    tr = dc.replace(TPUV5E_TIER, name="prefill-pool", chips=192)
+    mgr = ElasticMeshManager(stages, tl, tr, backend="cuda", device=DEVICE)
+    sync = ElasticMeshManager(stages, tl, tr, backend="reference")
+    broker = OffloadBroker(backend="cuda", device=DEVICE)
+    broker.register("fleet")
+    resizes = []
+    for step, chips in ((1, 16), (2, 512)):
+        pending = mgr.submit_resize(broker, "fleet", step, remote_chips=chips)
+        broker.tick()
+        ev = pending.resolve()
+        want = sync.resize(step, remote_chips=chips)
+        if not (np.array_equal(ev.plan.stage_tier, want.plan.stage_tier)
+                and ev.plan.cut_bytes == want.plan.cut_bytes):
+            raise AssertionError(f"elastic resize to {chips} chips: {ev.plan} vs {want.plan}")
+        resizes.append({"remote_chips": chips, "stages": int(ev.plan.stage_tier.size),
+                        "offloaded": int(ev.plan.stage_tier.sum()),
+                        "cut_bytes": ev.plan.cut_bytes})
+    out["elastic"] = {"arch": SERVE["arch"], "resizes": resizes}
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1937,6 +2367,10 @@ def main() -> int:
     checks["seconds"] = time.perf_counter() - t0
     emit(checks)
     t0 = time.perf_counter()
+    near = phase_near_symmetric(np.random.default_rng(16))
+    near["seconds"] = time.perf_counter() - t0
+    emit(near)
+    t0 = time.perf_counter()
     model_checks = phase_model_kernel_checks(rng)
     model_checks["seconds"] = time.perf_counter() - t0
     emit(model_checks)
@@ -1957,6 +2391,11 @@ def main() -> int:
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"broker path never launched {name}")
+    fleet = phase_solver_fleet(np.random.default_rng(17))  # its own path and counters
+    emit(fleet)
+    for name in BROKER_PATH_KERNELS:
+        if fleet["main_path_launches"][name] <= 0:
+            raise AssertionError(f"solver fleet path never launched {name}")
 
     t0 = time.perf_counter()
     serve = phase_serve()  # resets and reads the counters around its own path
@@ -1978,6 +2417,8 @@ def main() -> int:
     emit(served)
 
     work, kernels = kernel_lines(rng, launches)
+    for entry in kernels["kernels"]:  # B1 and B2: their launches on the fleet path too
+        entry["fleet_launches"] = fleet["main_path_launches"][entry["name"]]
     for name, path, line in (
         ("flash_attention_kernel", "flash_attention", 152),
         ("mamba_chunk_scan_kernel", "mamba_scan", 132),

@@ -49,8 +49,23 @@ dispatch builds and solves the K graphs.
 
 The JAX package keeps a cache of jitted build+solve executables
 (``_FUSED_SOLVERS``); eager PyTorch compiles nothing per cost model, so
-there is nothing to cache and the port has no counterpart.  ``mesh`` is
-accepted as ``None``/``False`` only: this package solves on one device.
+there is nothing to cache and the port has no counterpart.
+
+Solver fleet (``mesh=``, see :mod:`repro_torch.core.mcop_shard`): ``None``
+(auto) and ``False`` take the single-device dispatch on ``device``, a
+:class:`~repro_torch.launch.mesh.SolverMesh` shards over exactly its
+devices (and ``device`` is then not used); ``default_solver_mesh()`` is
+every CUDA device of a multi-GPU host.  Results are bit-identical
+either way; with a ``tracer`` the sharded path records one ``solve.shard``
+(``solve_envs.shard``) span per shard.
+
+Symmetry: a WCG's adjacency is symmetric to ``np.allclose``.  The packed
+solve kernels read the upper triangle, so within a bucket the graphs whose
+f32 adjacency is not exactly symmetric go to the kernel's full-row variant
+(``full_rows``) and the others keep the packed one.  The test runs on the
+device copy of the bucket and reads back one bool a graph.
+Profile-built weights (``solve_envs``) are symmetric by construction and
+are not tested.
 
 Padding semantics: padded vertices carry zero weights, zero edges, and
 are marked *pinned*, so the anchor fold absorbs them with no effect on
@@ -254,14 +269,6 @@ BATCH_BACKENDS = ("torch", "cuda")
 _SOLVER_DTYPE = np.float32
 
 
-def _single_device(mesh) -> None:
-    if mesh is not None and mesh is not False:
-        raise NotImplementedError(
-            "repro_torch solves on one device: pass mesh=None or mesh=False "
-            "(the sharded solver fleet is not part of this package yet)"
-        )
-
-
 def _bucket_size(n: int, buckets: Sequence[int]) -> int:
     for b in sorted(buckets):
         if n <= b:
@@ -292,8 +299,17 @@ def _pack_bucket(
     return adj, wl, wc, pinned
 
 
+def _symmetric_rows(adj: torch.Tensor) -> np.ndarray:
+    """Per graph of a packed ``(b, m, m)`` bucket, on its device: whether
+    the adjacency equals its transpose bit for bit (the padding is zeros).
+    Reads back ``b`` bools."""
+    return (adj == adj.transpose(1, 2)).flatten(1).all(1).cpu().numpy()
+
+
 def _dispatch_arrays(adj, wl, wc, pin, backend: str):
-    """One device dispatch over pre-packed (b, m[, m]) tensors."""
+    """One device dispatch over pre-packed (b, m[, m]) tensors: ``"cuda"``
+    launches B1's packed variant for the exactly symmetric graphs and its
+    full-row variant for the others (two launches for a mixed bucket)."""
     # deferred: keep core importable without pulling the kernel module
     from repro_torch.kernels.mcop_phase import (
         mcop_stoer_wagner_kernel,
@@ -302,7 +318,16 @@ def _dispatch_arrays(adj, wl, wc, pin, backend: str):
 
     if backend == "torch":
         return stoer_wagner_plain(adj, wl, wc, pin)
-    return mcop_stoer_wagner_kernel(adj, wl, wc, pin)
+    sym = _symmetric_rows(adj)
+    if sym.all() or not sym.any():
+        return mcop_stoer_wagner_kernel(adj, wl, wc, pin, full_rows=not sym.any())
+    cuts = torch.empty(adj.shape[:1], dtype=torch.float32, device=adj.device)
+    masks = torch.empty(wl.shape, dtype=torch.bool, device=adj.device)
+    for rows, full in ((sym, False), (~sym, True)):
+        idx = torch.from_numpy(np.flatnonzero(rows)).to(adj.device)
+        cuts[idx], masks[idx] = mcop_stoer_wagner_kernel(
+            *(a.index_select(0, idx) for a in (adj, wl, wc, pin)), full_rows=full)
+    return cuts, masks
 
 
 def _to_host(cuts, masks) -> tuple[np.ndarray, np.ndarray]:
@@ -311,8 +336,14 @@ def _to_host(cuts, masks) -> tuple[np.ndarray, np.ndarray]:
     return both[:, 0], both[:, 1:] > 0.5
 
 
-def _solve_packed(packed, backend: str, device) -> tuple[np.ndarray, np.ndarray]:
-    """Host arrays → device → one dispatch → one host sync back."""
+def _solve_packed(packed, backend: str, device, *, mesh=None,
+                  tracer=None) -> tuple[np.ndarray, np.ndarray]:
+    """Host arrays → device (or the fleet) → one dispatch a device → one
+    host sync back a device."""
+    if mesh is not None:
+        from repro_torch.core.mcop_shard import sharded_dispatch_arrays
+
+        return sharded_dispatch_arrays(*packed, mesh=mesh, backend=backend, tracer=tracer)
     from repro_torch.kernels.mcop_phase import require_device
 
     device = require_device(device)
@@ -320,12 +351,15 @@ def _solve_packed(packed, backend: str, device) -> tuple[np.ndarray, np.ndarray]
     return _to_host(*_dispatch_arrays(adj, wl, wc, pin, backend))
 
 
-def _solve_wcg_batch(batch: WCGBatch, *, backend: str, device) -> list["MCOPResult"]:
+def _solve_wcg_batch(batch: WCGBatch, *, backend: str, device, mesh=None,
+                     tracer=None) -> list["MCOPResult"]:
     """Array-native entry: a WCGBatch is already one packed bucket."""
     if backend == "reference":
         return [mcop_reference(g) for g in batch.to_wcgs()]
     if backend not in BATCH_BACKENDS:
         raise ValueError(f"unknown MCOP batch backend: {backend!r}")
+    from repro_torch.core.mcop_shard import resolve_mesh  # deferred: cycle
+
     cuts, masks = _solve_packed(
         (
             np.ascontiguousarray(batch.adj, _SOLVER_DTYPE),
@@ -335,6 +369,8 @@ def _solve_wcg_batch(batch: WCGBatch, *, backend: str, device) -> list["MCOPResu
         ),
         backend,
         device,
+        mesh=resolve_mesh(mesh),
+        tracer=tracer,
     )
     return [
         MCOPResult(
@@ -353,6 +389,7 @@ def mcop_batch(
     buckets: Sequence[int] = DEFAULT_BUCKETS,
     device: str | torch.device = "cuda",
     mesh=None,
+    tracer=None,
 ) -> list[MCOPResult]:
     """Solve many MCOP instances at once; results in input order.
 
@@ -370,16 +407,20 @@ def mcop_batch(
         bucket).
       device:   where the device backends run (ignored by
         ``"reference"``).  The default needs a GPU and raises without.
-      mesh:     ``None``/``False`` only (single device).
+      mesh:     solver-fleet routing (module docstring): ``None`` (auto)
+        or ``False`` one device, a ``SolverMesh`` its devices.
+      tracer:   optional :class:`~repro_torch.obs.trace.Tracer` — the
+        sharded path records one ``solve.shard`` span per shard (shard
+        index, shard count, real rows).
     Returns:
       ``list[MCOPResult]`` in input order; ``result[i].local_mask`` is
       ``(n_i,)`` bool over graph ``i``'s ORIGINAL vertices (padding
       cropped), True = execute locally.  ``min_cut`` is the Eq.-10
       optimum in solver precision (f32 on the device backends).
     """
-    _single_device(mesh)
     if isinstance(graphs, WCGBatch):
-        return _solve_wcg_batch(graphs, backend=backend, device=device)
+        return _solve_wcg_batch(graphs, backend=backend, device=device, mesh=mesh,
+                                tracer=tracer)
     graphs = list(graphs)
     if backend == "reference":
         return [mcop_reference(g) for g in graphs]
@@ -390,10 +431,13 @@ def mcop_batch(
     for i, g in enumerate(graphs):
         by_bucket.setdefault(_bucket_size(g.n, buckets), []).append(i)
 
+    from repro_torch.core.mcop_shard import resolve_mesh  # deferred: cycle
+
+    use_mesh = resolve_mesh(mesh)
     results: list[MCOPResult | None] = [None] * len(graphs)
     for m, idxs in sorted(by_bucket.items()):
         packed = _pack_bucket([graphs[i] for i in idxs], m, _SOLVER_DTYPE)
-        cuts, masks = _solve_packed(packed, backend, device)
+        cuts, masks = _solve_packed(packed, backend, device, mesh=use_mesh, tracer=tracer)
         for row, i in enumerate(idxs):
             results[i] = MCOPResult(
                 min_cut=float(cuts[row]),
@@ -455,6 +499,7 @@ def solve_envs(
     device: str | torch.device = "cuda",
     metrics=None,
     mesh=None,
+    tracer=None,
 ) -> list[MCOPResult]:
     """Fused Fig.-1 pipeline: K environments → K placements, one dispatch.
 
@@ -481,9 +526,12 @@ def solve_envs(
       metrics: optional :class:`~repro_torch.obs.metrics.MetricsRegistry`
         — when given, each call counts one ``solve_envs_dispatches`` and
         times the dispatch into ``solve_envs_duration_s``, both labeled
-        ``(backend, bucket, devices)`` with ``devices=1``.  ``None``
-        (default) adds no work and no clock reads.
-      mesh:    ``None``/``False`` only (single device).
+        ``(backend, bucket, devices)``, ``devices`` the shard count (1
+        unsharded).  ``None`` (default) adds no work and no clock reads.
+      mesh:    solver-fleet routing (module docstring); ignored by
+        ``"reference"``.  Sharded results are bit-identical to unsharded.
+      tracer:  optional :class:`~repro_torch.obs.trace.Tracer` — the
+        sharded path records one ``solve_envs.shard`` span per shard.
     Returns:
       ``list[MCOPResult]``, one per environment in input order, masks
       ``(n,)`` bool over the profile's vertices.
@@ -500,7 +548,8 @@ def solve_envs(
         validate_env_finite,
     )
 
-    _single_device(mesh)
+    from repro_torch.core.mcop_shard import resolve_mesh, solver_shards  # deferred
+
     if not isinstance(envs, EnvArrays):
         envs = EnvArrays.from_envs(list(envs))
     k = envs.k
@@ -509,13 +558,15 @@ def solve_envs(
     # corrupted environments must be named here, not silently solved
     # (NaN weights partition into garbage) — see NonFiniteWeightError
     validate_env_finite(envs)
+    use_mesh = None if backend == "reference" else resolve_mesh(mesh)
+    devices = 1 if use_mesh is None else solver_shards(use_mesh)
     if metrics is not None:
         bucket = _bucket_size(profile.n, buckets)
         metrics.counter(
-            "solve_envs_dispatches", backend=backend, bucket=bucket, devices=1
+            "solve_envs_dispatches", backend=backend, bucket=bucket, devices=devices
         ).inc()
         timer = metrics.timer(
-            "solve_envs_duration_s", backend=backend, bucket=bucket, devices=1
+            "solve_envs_duration_s", backend=backend, bucket=bucket, devices=devices
         )
     else:
         from repro_torch.obs.trace import NULL_SPAN as timer
@@ -527,9 +578,6 @@ def solve_envs(
             ]
     if backend not in BATCH_BACKENDS + ("cuda_fused",):
         raise ValueError(f"unknown MCOP batch backend: {backend!r}")
-    from repro_torch.kernels.mcop_phase import require_device
-
-    device = require_device(device)
     dtype = _SOLVER_DTYPE
     n = profile.n
     m = _bucket_size(n, buckets)
@@ -548,20 +596,31 @@ def solve_envs(
     if not pinned[:n].any():
         pinned[0] = True
 
+    # six columns per environment cross to the device as one matrix
+    env = np.stack(envs.astype(dtype), axis=0)
     with timer:
-        # six columns per environment cross to the device as one matrix
-        env_dev = torch.from_numpy(np.stack(envs.astype(dtype), axis=0)).to(device)
-        env_cols = EnvArrays(*env_dev.unbind(0))
-        cuts, masks = _fused_dispatch(
-            model,
-            backend,
-            torch.from_numpy(t_local).to(device),
-            torch.from_numpy(data_in).to(device),
-            torch.from_numpy(data_out).to(device),
-            torch.from_numpy(pinned).to(device),
-            env_cols,
-        )
-        cuts_h, masks_h = _to_host(cuts, masks)
+        if use_mesh is not None:
+            from repro_torch.core.mcop_shard import sharded_solve_envs
+
+            cuts_h, masks_h = sharded_solve_envs(
+                model, backend, (t_local, data_in, data_out, pinned), env,
+                mesh=use_mesh, tracer=tracer,
+            )
+        else:
+            from repro_torch.kernels.mcop_phase import require_device
+
+            device = require_device(device)
+            env_dev = torch.from_numpy(env).to(device)
+            cuts, masks = _fused_dispatch(
+                model,
+                backend,
+                torch.from_numpy(t_local).to(device),
+                torch.from_numpy(data_in).to(device),
+                torch.from_numpy(data_out).to(device),
+                torch.from_numpy(pinned).to(device),
+                EnvArrays(*env_dev.unbind(0)),
+            )
+            cuts_h, masks_h = _to_host(cuts, masks)
     return [
         MCOPResult(min_cut=float(cuts_h[i]), local_mask=masks_h[i, :n].copy(), phases=[])
         for i in range(k)

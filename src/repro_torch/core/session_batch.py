@@ -61,7 +61,7 @@ import torch
 from repro_torch.core import pricing
 from repro_torch.core.adaptive import AdaptationEvent, drift_exceeded_arrays
 from repro_torch.core.cost_models import AppProfile, CostModel, EnvArrays
-from repro_torch.core.mcop import DEFAULT_BUCKETS, MCOPResult, _single_device, solve_envs
+from repro_torch.core.mcop import DEFAULT_BUCKETS, MCOPResult, solve_envs
 from repro_torch.core.placement_cache import PlacementCache
 from repro_torch.kernels.build import KernelError
 from repro_torch.obs.trace import NULL_SPAN
@@ -428,10 +428,13 @@ def tick_sessions(
     ``None`` and the instrumented paths then run bit-identically to the
     uninstrumented tick — notably they never read the caller's clock.
 
-    ``mesh`` takes ``None``/``False`` only: this package solves on one
-    device, and the flush span reports ``devices=1``.
+    Solver fleet (``mesh``, see ``repro_torch.core.mcop_shard``): ``None``
+    (auto) and ``False`` solve on ``device``, a ``SolverMesh`` shards the
+    solve flush over its devices; the flush span carries the
+    resolved device count and the sharded flush is bit-identical to the
+    single-device one.  A tick with no miss resolves no mesh and
+    dispatches nothing.
     """
-    _single_device(mesh)
     if faults is not None or resilience is not None:
         # deferred: the fault vocabulary lives in the service layer
         from repro_torch.service.faults import InjectedFault, poison_envs
@@ -516,15 +519,19 @@ def tick_sessions(
         # QUARANTINES the flush: every miss row degrades to a fallback
         # mask below instead of aborting the whole tick.
         solved: list | None = [] if not solve_idx else None
-        on_cpu = torch.device(device).type == "cpu"
         if solve_idx:
+            from repro_torch.core.mcop_shard import resolve_mesh, runs_on_cpu, solver_shards
+
+            use_mesh = resolve_mesh(mesh)
+            devices = 1 if use_mesh is None else solver_shards(use_mesh)
+            on_cpu = runs_on_cpu(use_mesh, device)
             sub = envs.take(solve_idx)
             with _span(
                 "stage.solve_flush",
                 batch=len(solve_idx),
                 backend=backend,
                 tick=tick,
-                devices=1,
+                devices=devices,
             ):
                 for attempt in range(attempts):
                     if attempt:
@@ -567,7 +574,10 @@ def tick_sessions(
                             buckets=buckets,
                             device=device,
                             metrics=metrics,
-                            mesh=mesh,
+                            # already resolved: span attr and dispatch
+                            # must agree on the device count
+                            mesh=use_mesh,
+                            tracer=tracer,
                         )
                         if not all(np.isfinite(r.min_cut) for r in out):
                             raise RuntimeError(

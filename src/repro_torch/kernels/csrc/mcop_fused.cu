@@ -145,7 +145,7 @@ __global__ void mcop_fused_block_kernel(const float* __restrict__ t_local,
       const int i = x / n, j = x - i * n;
       A[x] = edge_weight(e, data_in, data_out, i, j, n, kind, omega, t_norm, e_norm);
     }
-    solve_graph(A, ws, n, cuts + b, masks + (size_t)b * n);
+    solve_graph<false>(A, ws, n, cuts + b, masks + (size_t)b * n);
   }
 }
 

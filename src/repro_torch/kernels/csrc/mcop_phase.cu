@@ -13,13 +13,17 @@
 //   memory, (cut, s, t) out.  The counterpart of the Pallas kernel.
 // * repro_torch_phase_step: one phase of kernels/ops.py:mcop_min_cut's loop
 //   and everything the host did after it, on the loop's device state: the
-//   working matrix as the packed upper triangle (sw_common.cuh), wl, wc,
-//   alive, label, the best cut and its cloud mask, the anchor, and a log of
-//   (cut, s, t) per phase.  After the phase the same launch keeps a strictly
-//   smaller cut and its cloud side (label == t), merges t into s (Algorithm
-//   1, in the reference's f32 arithmetic), adds wl[t] and wc[t] into s,
-//   relabels t's members and moves the anchor when t was the source.  The
-//   host issues one launch per phase and reads nothing back until the end.
+//   working matrix, wl, wc, alive, label, the best cut and its cloud mask,
+//   the anchor, and a log of (cut, s, t) per phase.  After the phase the same
+//   launch keeps a strictly smaller cut and its cloud side (label == t),
+//   merges t into s (Algorithm 1, in the reference's f32 arithmetic), adds
+//   wl[t] and wc[t] into s, relabels t's members and moves the anchor when t
+//   was the source.  The host issues one launch per phase and reads nothing
+//   back until the end.  The working matrix is the packed upper triangle
+//   (sw_common.cuh) when the graph is exactly symmetric with a zero diagonal,
+//   and the full (n, n) matrix otherwise: the phase then reads rows and the
+//   merge adds row t into row s and column t into column s, as the
+//   reference's loop does on any matrix.
 //
 // What bounds it on this card: latency, not bytes or arithmetic.  A phase
 // reads n_alive + 2 rows, (n_alive + 2) n 4 bytes, and does about 3 n^2
@@ -33,8 +37,8 @@
 // n = 341, a full (n, n) one up to n = 241) the launch first stages it into
 // shared memory with all 256 threads of its block, every 16-byte cp.async in
 // flight at once, and then one warp runs the phase.  The variant that reads
-// rows from device memory and L2 runs the matrices that do not fit, and the
-// smoke times it beside the staged one.  Above n = 256 one block runs the
+// rows from device memory and L2 runs the matrices that do not fit (a full
+// loop matrix above n = 241), and the smoke times it beside the staged one.  Above n = 256 one block runs the
 // phase (shared-memory vectors, one block argmax a step).
 #include <stdint.h>
 
@@ -49,7 +53,7 @@ constexpr uint8_t kInA = 2;
 // The loop's device state (kernels/mcop_phase.py:LoopState lays it out in one
 // buffer, so that it goes up in one copy and the result comes back in one).
 struct LoopState {
-  float* P;        // packed working matrix, tri_bytes(n) bytes
+  float* P;        // working matrix: packed (tri_bytes(n) bytes) or full (n, n)
   float* wl;       // (n) merged local cost
   float* wc;       // (n) merged cloud cost
   uint8_t* alive;  // (n)
@@ -133,14 +137,48 @@ __global__ void __launch_bounds__(kStageThreads, 1)
   }
 }
 
-template <int CPL, bool kStaged>
+// Algorithm 1 on a full matrix, for the lane's columns: row s += row t and
+// column s += column t off {s, t}, A[s][s] = 0, row and column t zeroed,
+// read from `from` and written to `to` (the same matrix, or a staged copy
+// and the original).  Column owner j writes A[s][j], A[j][s], A[t][j],
+// A[j][t]; the owner of s writes A[s][s], A[s][t], A[t][s]; the owner of t
+// writes A[t][t]: no element has two writers.  The caller orders these
+// writes after every read of the phase.
+template <int CPL>
+__device__ __forceinline__ void full_merge(const float* from, float* to, int n, int lane,
+                                           int s, int t) {
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    const int j = lane + 32 * k;
+    if (j >= n) continue;
+    if (j == t) {
+      to[(size_t)t * n + t] = 0.f;
+      continue;
+    }
+    if (j == s) {
+      to[(size_t)s * n + s] = 0.f;
+    } else {
+      to[(size_t)s * n + j] = from[(size_t)s * n + j] + from[(size_t)t * n + j];
+      to[(size_t)j * n + s] = from[(size_t)j * n + s] + from[(size_t)j * n + t];
+    }
+    to[(size_t)t * n + j] = 0.f;
+    to[(size_t)j * n + t] = 0.f;
+  }
+}
+
+// Floats of the loop's working matrix.
+__host__ __device__ inline size_t matrix_floats(int n, bool packed) {
+  return packed ? tri_bytes(n) / 4 : (size_t)n * n;
+}
+
+template <int CPL, bool kStaged, bool kPacked>
 __global__ void __launch_bounds__(kStageThreads, 1)
     phase_step_warp_kernel(LoopState S, int phase, float ctot, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   float* rows = kStaged ? reinterpret_cast<float*>(smem) : S.P;
-  if (kStaged && !stage_floats(rows, S.P, (int)(tri_bytes(n) / 4))) return;
-  const Rows<true> A{rows, n};
+  if (kStaged && !stage_floats(rows, S.P, (int)matrix_floats(n, kPacked))) return;
+  const Rows<kPacked> A{rows, n};
   const int src = S.scal[0];
   const float best = __int_as_float(S.scal[1]);
   int rj[CPL], label[CPL];
@@ -149,7 +187,7 @@ __global__ void __launch_bounds__(kStageThreads, 1)
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
     const int j = lane + 32 * k;
-    rj[k] = tri_row(j, n);
+    rj[k] = kPacked ? tri_row(j, n) : 0;
     wl[k] = 0.f;
     wc[k] = 0.f;
     label[k] = -1;
@@ -163,22 +201,26 @@ __global__ void __launch_bounds__(kStageThreads, 1)
 #pragma unroll
   for (int k = 0; k < CPL; ++k) gain[k] = wl[k] - wc[k];
   const int n_alive = warp_count<CPL>(alive);
-  const int rsrc = tri_row(src, n);
+  const int rsrc = A.row(src);
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
     const int j = lane + 32 * k;
     conn[k] = (bit(alive, k) && j != src) ? rows[A.at(rsrc, src, j, rj[k])] : 0.f;
   }
-  const int2 st = absorb_chain<CPL, true>(A, lane, n_alive, src, conn, gain, rj, alive, in_a);
+  const int2 st =
+      absorb_chain<CPL, kPacked>(A, lane, n_alive, src, conn, gain, rj, alive, in_a);
   const int s = st.x, t = st.y;
-  const float cut = phase_cut<CPL, true>(A, lane, t, ctot, gain, rj, alive);
+  const float cut = phase_cut<CPL, kPacked>(A, lane, t, ctot, gain, rj, alive);
   const bool improved = cut < best;  // the same bits in every lane
 
   // Algorithm 1 in the device matrix, from the rows this launch read, after
   // every lane's reads; the next launch sees the writes at the kernel
   // boundary.
   __syncwarp();
-  packed_merge<CPL>(rows, S.P, n, lane, s, t, rj);
+  if (kPacked)
+    packed_merge<CPL>(rows, S.P, n, lane, s, t, rj);
+  else
+    full_merge<CPL>(rows, S.P, n, lane, s, t);
   const float wl_t = lane_value<CPL>(wl, t), wc_t = lane_value<CPL>(wc, t);
 #pragma unroll
   for (int k = 0; k < CPL; ++k) {
@@ -302,6 +344,7 @@ __global__ void phase_block_kernel(const float* __restrict__ adj,
 
 // The loop's step on a block.  The gains go through a scratch vector of the
 // state: block_phase reads gains[j] in the thread that wrote it.
+template <bool kPacked>
 __global__ void phase_step_block_kernel(LoopState S, float* __restrict__ gains,
                                         int phase, float ctot, int n) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -309,16 +352,33 @@ __global__ void phase_step_block_kernel(LoopState S, float* __restrict__ gains,
   const float best = __int_as_float(S.scal[1]);
   for (int j = tid; j < n; j += nt) gains[j] = S.wl[j] - S.wc[j];
   float cut;
-  const Rows<true> A{S.P, n};
-  const int2 st = block_phase<true>(A, gains, S.alive, src, ctot, &cut);
+  const Rows<kPacked> A{S.P, n};
+  const int2 st = block_phase<kPacked>(A, gains, S.alive, src, ctot, &cut);
   const int s = st.x, t = st.y;
   const bool improved = cut < best;
-  const int rs = tri_row(s, n), rt = tri_row(t, n);
-  // every read of the phase is behind block_phase's last barrier
+  const int rs = A.row(s), rt = A.row(t);
+  // every read of the phase is behind block_phase's last barrier; column
+  // owner j writes only elements of row or column j (full_merge's rule)
   for (int j = tid; j < n; j += nt) {
     const int lab = S.label[j];
     if (improved) S.cloud[j] = lab == t ? 1 : 0;
     if (lab == t) S.label[j] = s;
+    if (!kPacked) {
+      float* P = S.P;
+      if (j == t) {
+        P[(size_t)t * n + t] = 0.f;
+        continue;
+      }
+      if (j == s) {
+        P[(size_t)s * n + s] = 0.f;
+      } else {
+        P[(size_t)s * n + j] += P[(size_t)t * n + j];
+        P[(size_t)j * n + s] += P[(size_t)j * n + t];
+      }
+      P[(size_t)t * n + j] = 0.f;
+      P[(size_t)j * n + t] = 0.f;
+      continue;
+    }
     if (j == t) continue;
     const int rj = tri_row(j, n);
     const int et = A.at(rt, t, j, rj);
@@ -340,6 +400,8 @@ __global__ void phase_step_block_kernel(LoopState S, float* __restrict__ gains,
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
+
+inline int block_threads(int n) { return n >= 256 ? 256 : ((n + 31) / 32) * 32; }
 
 inline int smem_optin() {
   static int bytes = 0;
@@ -380,23 +442,37 @@ inline cudaError_t launch_phase_warp(const float* adj, const float* gains,
   return cudaGetLastError();
 }
 
-template <int CPL>
+template <int CPL, bool kPacked>
 inline cudaError_t launch_step_warp(const LoopState& S, int phase, float ctot, int n,
                                     bool staged, cudaStream_t st) {
   if (staged) {
     static size_t allowed = 48 * 1024;
-    const size_t smem = tri_bytes(n);
+    const size_t smem = matrix_floats(n, kPacked) * 4;
     cudaError_t err =
-        allow_smem((const void*)phase_step_warp_kernel<CPL, true>, smem, &allowed);
+        allow_smem((const void*)phase_step_warp_kernel<CPL, true, kPacked>, smem, &allowed);
     if (err != cudaSuccess) return err;
-    phase_step_warp_kernel<CPL, true><<<1, kStageThreads, smem, st>>>(S, phase, ctot, n);
+    phase_step_warp_kernel<CPL, true, kPacked>
+        <<<1, kStageThreads, smem, st>>>(S, phase, ctot, n);
   } else {
-    phase_step_warp_kernel<CPL, false><<<1, 32, 0, st>>>(S, phase, ctot, n);
+    phase_step_warp_kernel<CPL, false, kPacked><<<1, 32, 0, st>>>(S, phase, ctot, n);
   }
   return cudaGetLastError();
 }
 
-inline int block_threads(int n) { return n >= 256 ? 256 : ((n + 31) / 32) * 32; }
+template <bool kPacked>
+inline cudaError_t launch_step(const LoopState& S, float* gains, int phase, float ctot,
+                               int n, bool staged, cudaStream_t st) {
+  switch (n <= kWarpMaxN ? warp_cpl(n) : 0) {
+    case 1: return launch_step_warp<1, kPacked>(S, phase, ctot, n, staged, st);
+    case 2: return launch_step_warp<2, kPacked>(S, phase, ctot, n, staged, st);
+    case 4: return launch_step_warp<4, kPacked>(S, phase, ctot, n, staged, st);
+    case 8: return launch_step_warp<8, kPacked>(S, phase, ctot, n, staged, st);
+    default:
+      phase_step_block_kernel<kPacked><<<1, block_threads(n), block_smem_bytes(n), st>>>(
+          S, gains, phase, ctot, n);
+      return cudaGetLastError();
+  }
+}
 
 }  // namespace repro_torch
 
@@ -429,25 +505,16 @@ extern "C" int repro_torch_phase_solve(const float* adj, const float* gains,
 
 // One phase of mcop_min_cut's loop and its merge on the loop state (the
 // pointers are sections of one buffer; `gains` is (n) floats of scratch for
-// the block variant).  `phase` is the log row to write.
+// the block variant).  `phase` is the log row to write; `full` = 1 when P is
+// the full (n, n) matrix, 0 when it is the packed upper triangle.
 extern "C" int repro_torch_phase_step(float* P, float* wl, float* wc, float* gains,
                                       int* label, int* log, int* scal, uint8_t* alive,
                                       uint8_t* cloud, int n, int phase, float ctot,
-                                      int rows, void* stream) {
+                                      int rows, int full, void* stream) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   LoopState S{P, wl, wc, alive, label, cloud, scal, log};
-  const bool staged = rows == 0 && tri_bytes(n) <= (size_t)smem_optin();
-  cudaError_t err;
-  switch (n <= kWarpMaxN ? warp_cpl(n) : 0) {
-    case 1: err = launch_step_warp<1>(S, phase, ctot, n, staged, st); break;
-    case 2: err = launch_step_warp<2>(S, phase, ctot, n, staged, st); break;
-    case 4: err = launch_step_warp<4>(S, phase, ctot, n, staged, st); break;
-    case 8: err = launch_step_warp<8>(S, phase, ctot, n, staged, st); break;
-    default:
-      phase_step_block_kernel<<<1, block_threads(n), block_smem_bytes(n), st>>>(
-          S, gains, phase, ctot, n);
-      err = cudaGetLastError();
-  }
-  return (int)err;
+  const bool staged = rows == 0 && matrix_floats(n, !full) * 4 <= (size_t)smem_optin();
+  return (int)(full ? launch_step<false>(S, gains, phase, ctot, n, staged, st)
+                    : launch_step<true>(S, gains, phase, ctot, n, staged, st));
 }

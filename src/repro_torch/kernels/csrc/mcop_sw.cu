@@ -17,10 +17,13 @@
 // shared-memory row read, with no barrier; several graphs share a block, one
 // per warp, and each warp walks over graphs until the batch is done.  Above
 // the packed limit one block solves a graph in a per-block scratch matrix in
-// device memory, with one barrier per absorb step (solve_graph).  The
-// adjacency must be symmetric with a zero diagonal, as a WCG's is: the warp
-// variant reads its upper triangle only.  Rows are indexed directly; the
-// one-hot reductions and identity-mask transposes of the TPU body have no
+// device memory, with one barrier per absorb step (solve_graph).  The warp
+// variant reads the upper triangle only, so it needs an exactly symmetric
+// adjacency with a zero diagonal.  A WCG is symmetric only to a tolerance, so
+// the host sends a bucket that is not exactly symmetric to the block variant
+// at any n (repro_torch_sw_plan_rows): it reads full rows and merges rows and
+// columns as the reference does.  Rows are indexed directly; the one-hot
+// reductions and identity-mask transposes of the TPU body have no
 // counterpart here, and the n x n membership matrix is a label vector.
 #include "sw_common.cuh"
 
@@ -66,6 +69,7 @@ __global__ void __launch_bounds__(kMaxGraphsPerBlock * 32, 1)
   }
 }
 
+template <bool FULL>
 __global__ void mcop_sw_block_kernel(const float* __restrict__ adj,
                                      const float* __restrict__ w_local,
                                      const float* __restrict__ w_cloud,
@@ -84,7 +88,7 @@ __global__ void mcop_sw_block_kernel(const float* __restrict__ adj,
       ws.wc[j] = w_cloud[(size_t)b * n + j];
       ws.in_a[j] = pinned[(size_t)b * n + j] ? 1 : 0;
     }
-    solve_graph(A, ws, n, cuts + b, masks + (size_t)b * n);
+    solve_graph<FULL>(A, ws, n, cuts + b, masks + (size_t)b * n);
   }
 }
 
@@ -122,7 +126,23 @@ extern "C" int repro_torch_sw_plan(int n, int batch, int graphs_per_block, int* 
   Plan p;
   cudaError_t err = repro_torch::make_plan(
       n, batch, graphs_per_block, repro_torch::warp_kernel(repro_torch::warp_cpl(n)),
-      (const void*)repro_torch::mcop_sw_block_kernel, &p);
+      (const void*)repro_torch::mcop_sw_block_kernel<false>, &p);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = p.cpl;
+  out[1] = p.threads;
+  out[2] = p.smem_bytes;
+  out[3] = p.resident_blocks;
+  out[4] = p.graphs_per_block;
+  return 0;
+}
+
+// The same for the full-row block variant at any n: the plan of a batch
+// whose adjacencies are not all exactly symmetric (out[0] is 0; launch it
+// with full_rows set).
+extern "C" int repro_torch_sw_plan_rows(int n, int batch, int* out) {
+  Plan p;
+  cudaError_t err = repro_torch::make_plan(
+      n, batch, 0, nullptr, (const void*)repro_torch::mcop_sw_block_kernel<true>, &p, true);
   if (err != cudaSuccess) return (int)err;
   out[0] = p.cpl;
   out[1] = p.threads;
@@ -136,7 +156,7 @@ extern "C" int repro_torch_sw_solve(const float* adj, const float* w_local,
                                     const float* w_cloud, const uint8_t* pinned,
                                     float* cuts, uint8_t* masks, float* scratch,
                                     int batch, int n, int grid, int threads, int cpl,
-                                    int smem_bytes, void* stream) {
+                                    int smem_bytes, int full_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (cpl) {
 #define REPRO_SW_WARP(C)                                                         \
@@ -151,8 +171,12 @@ extern "C" int repro_torch_sw_solve(const float* adj, const float* w_local,
     REPRO_SW_WARP(11)
 #undef REPRO_SW_WARP
     case 0:
-      repro_torch::mcop_sw_block_kernel<<<grid, threads, smem_bytes, st>>>(
-          adj, w_local, w_cloud, pinned, cuts, masks, scratch, batch, n);
+      if (full_rows)
+        repro_torch::mcop_sw_block_kernel<true><<<grid, threads, smem_bytes, st>>>(
+            adj, w_local, w_cloud, pinned, cuts, masks, scratch, batch, n);
+      else
+        repro_torch::mcop_sw_block_kernel<false><<<grid, threads, smem_bytes, st>>>(
+            adj, w_local, w_cloud, pinned, cuts, masks, scratch, batch, n);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -16,7 +16,10 @@
 // * solve_graph: one block per graph, the full n x n matrix in a per-block
 //   scratch in device memory, the vectors in shared memory; one
 //   __syncthreads per absorb step (the cross-warp half of the argmax).  Kept
-//   for the graphs above the packed limit.
+//   for the graphs above the packed limit, and for any bucket whose
+//   adjacency is not exactly symmetric: it reads rows and merges rows and
+//   columns as the reference does, so it needs no symmetry (on a symmetric
+//   matrix its row and column terms are the same numbers in the same order).
 //
 // The absorb chain, the packed index map, the order-preserving score key
 // and the two-step warp argmax are shared with mcop_phase.cu (B3).
@@ -531,7 +534,12 @@ __device__ inline int block_argmax(float v, int i, float* rv, int* ri) {
 
 // Full solve of the graph held in (A, ws.wl, ws.wc) with the pinned mask in
 // ws.in_a.  Writes the minimum Eq.-10 cut and the local mask (1 = run
-// locally).  Must be called by every thread of the block.
+// locally).  Must be called by every thread of the block.  FULL folds and
+// merges true columns (a matrix that is not exactly symmetric, read as the
+// reference reads it); without it the fold and the merge read rows only and
+// mirror them into the columns, one coalesced read, which needs an exactly
+// symmetric matrix.  On a symmetric matrix both give the same numbers.
+template <bool FULL>
 __device__ inline void solve_graph(float* A, const Workspace& ws, int n,
                                    float* cut_out, uint8_t* mask_out) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -561,12 +569,19 @@ __device__ inline void solve_graph(float* A, const Workspace& ws, int n,
   const float wc_src = pin_c + (any_pinned ? 0.f : ws.wc[src]);
 
   // ---- fold every other pinned vertex into the anchor ------------------
-  // fold[j] = sum over folded rows i of A[i][j], rows in ascending order.
+  // fold[j] = sum over folded rows i of A[i][j] (row src gains it) and, with
+  // FULL, sum over folded columns i of A[j][i] (column src gains it; else
+  // the row sum), i ascending; the column sum waits in gains, which every
+  // phase refreshes.
   for (int j = tid; j < n; j += nt) {
-    float f = 0.f;
+    float f = 0.f, fc = 0.f;
     for (int i = 0; i < n; ++i)
-      if (pin[i] && i != src) f += A[i * n + j];
+      if (pin[i] && i != src) {
+        f += A[i * n + j];
+        if constexpr (FULL) fc += A[j * n + i];
+      }
     ws.conn[j] = f;
+    if constexpr (FULL) ws.gains[j] = fc;
   }
   __syncthreads();  // all folded rows read before they are cleared
   for (int e = tid; e < n * n; e += nt) {
@@ -581,7 +596,7 @@ __device__ inline void solve_graph(float* A, const Workspace& ws, int n,
     } else if (!other) {
       const float f = ws.conn[j];
       A[src * n + j] += f;
-      A[j * n + src] += f;
+      A[j * n + src] += FULL ? ws.gains[j] : f;
     }
     ws.label[j] = pin[j] ? src : j;
     ws.alive[j] = other ? 0 : 1;
@@ -634,14 +649,15 @@ __device__ inline void solve_graph(float* A, const Workspace& ws, int n,
       for (int j = tid; j < n; j += nt) ws.cloud[j] = ws.label[j] == t;
     }
 
-    // Algorithm 1: merge t into s.  Column owner j writes A[s][j], A[j][s],
-    // A[t][j], A[j][t]; owner s also clears A[s][s], so no element has two
-    // writers.
+    // Algorithm 1: merge t into s, row s += row t and column s += column t
+    // (without FULL, row t's value stands for column t's).  Column owner j
+    // writes A[s][j], A[j][s], A[t][j], A[j][t]; owner s also clears
+    // A[s][s], so no element has two writers.
     for (int j = tid; j < n; j += nt) {
-      const float r = A[t * n + j];
       if (j != s && j != t) {
+        const float r = A[t * n + j];
         A[s * n + j] += r;
-        A[j * n + s] += r;
+        A[j * n + s] += FULL ? A[j * n + t] : r;
       }
       A[t * n + j] = 0.f;
       A[j * n + t] = 0.f;
@@ -698,13 +714,15 @@ inline cudaError_t device_limits(int* smem_optin, int* sms) {
 // limit), `block_kernel` the scratch variant.  `want_gpb` > 0 asks for that
 // many graphs a block (the result is bitwise the same for every choice);
 // 0 takes the count that keeps the most graphs resident on an SM, lowered
-// so that a small batch still spreads over every SM.
+// so that a small batch still spreads over every SM.  `full_rows` takes the
+// scratch variant at every n (a matrix that is not exactly symmetric).
 inline cudaError_t make_plan(int n, int batch, int want_gpb, const void* warp_kernel,
-                             const void* block_kernel, Plan* plan) {
+                             const void* block_kernel, Plan* plan,
+                             bool full_rows = false) {
   int smem_optin = 0, sms = 0, per_sm = 0;
   cudaError_t err = device_limits(&smem_optin, &sms);
   if (err != cudaSuccess) return err;
-  if (n <= packed_limit(smem_optin)) {
+  if (!full_rows && n <= packed_limit(smem_optin)) {
     const size_t per = tri_bytes(n);
     const int fit = (int)(smem_optin / per);
     err = cudaFuncSetAttribute(warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

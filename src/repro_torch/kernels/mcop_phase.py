@@ -23,10 +23,10 @@ A third runs a single MinCutPhase (Algorithm 3) per launch
   package's Pallas kernel of the same name.  :func:`mcop_phase_packed`
   launches it and returns the three results in one buffer.
 * :func:`mcop_phase_step` — one phase of ``kernels.ops.mcop_min_cut``'s
-  loop on its device state (:class:`LoopState`: the packed working matrix,
-  merged weights, labels, the best cut and its cloud mask, a log of
-  ``(cut, s, t)``), followed in the same launch by the Algorithm-1 merge
-  and the best-cut update the host loop used to do.
+  loop on its device state (:class:`LoopState`: the working matrix, packed
+  or full, merged weights, labels, the best cut and its cloud mask, a log
+  of ``(cut, s, t)``), followed in the same launch by the Algorithm-1
+  merge and the best-cut update the host loop used to do.
 
 Beside each stands its plain version (:func:`stoer_wagner_plain`,
 :func:`fused_solve_plain`, ``kernels.ref.mcop_phase_plain``,
@@ -42,11 +42,16 @@ Semantics shared by all four (and by ``core.mcop.mcop_reference``): the
 anchor is the first pinned vertex (vertex 0 if none), every other pinned
 vertex is folded into it, ties in the most-tightly-connected-vertex scan
 go to the lowest index, a cut improves only on strict ``<``, and padded
-vertices are encoded pinned with zero weights and zero edges.  Adjacencies
-are symmetric with a zero diagonal (a WCG's are): the packed kernels read
-the upper triangle.  Arithmetic is float32; sums are taken in different
-orders by the kernels and the plain versions, so cuts agree to rounding,
-not bitwise.
+vertices are encoded pinned with zero weights and zero edges.  A phase
+reads rows, and a merge adds row ``t`` into row ``s`` and column ``t``
+into column ``s``, as the reference does on any matrix.  The packed
+layouts (B1's and B2's warp variant, B3's packed loop state) hold only the
+upper triangle, so they answer for an exactly symmetric adjacency with a
+zero diagonal only: a WCG is symmetric to a tolerance, and its callers send
+one that is not exactly symmetric to the full-row variants
+(``full_rows=True``, a full :class:`LoopState`).  Arithmetic is float32;
+sums are taken in different orders by the kernels and the plain versions,
+so cuts agree to rounding, not bitwise.
 """
 
 from __future__ import annotations
@@ -192,10 +197,12 @@ def _fold_pinned(adj, w_local, w_cloud, pin):
     others = pin & (idx[None, :] != src[:, None])
     keep = ~others
     fold = (adj * others[:, :, None]).sum(dim=1)  # Σ rows being folded
+    # Σ columns being folded, by the same reduction on the transpose: on a
+    # symmetric matrix the same bits as ``fold``
+    fold_c = (adj.transpose(1, 2).contiguous() * others[:, :, None]).sum(dim=1)
     adj = adj * keep[:, :, None] * keep[:, None, :]
-    add = fold * keep
-    adj[rows, src, :] += add
-    adj[rows, :, src] += add
+    adj[rows, src, :] += fold * keep
+    adj[rows, :, src] += fold_c * keep
     adj[rows, src, src] = 0.0
     src_free = ~pin[rows, src]
     wl_src = (w_local * pin).sum(dim=-1) + w_local[rows, src] * src_free
@@ -263,12 +270,13 @@ def stoer_wagner_plain(
         best_cut = torch.where(improved, cut, best_cut)
         best_cloud = torch.where(improved[:, None], cloud_t, best_cloud)
 
-        # Algorithm 1: merge t into s, in place, on the lanes that merge.
+        # Algorithm 1: merge t into s, in place, on the lanes that merge:
+        # row s += row t, column s += column t.
         do_merge = valid & (s_reg != t_reg)
         dm = do_merge[:, None]
-        t_add = torch.where(dm, t_row, zero)
-        adj[rows, s_reg, :] += t_add
-        adj[rows, :, s_reg] += t_add
+        t_col = adj[rows, :, t_reg]
+        adj[rows, s_reg, :] += torch.where(dm, t_row, zero)
+        adj[rows, :, s_reg] += torch.where(dm, t_col, zero)
         adj[rows, s_reg, s_reg] = torch.where(do_merge, zero, adj[rows, s_reg, s_reg])
         adj[rows, t_reg, :] = torch.where(dm, zero, adj[rows, t_reg, :])
         adj[rows, :, t_reg] = torch.where(dm, zero, adj[rows, :, t_reg])
@@ -360,13 +368,14 @@ def _library(name: str):
     if name == "mcop_sw":
         lib.repro_torch_sw_packed_limit.argtypes = [ctypes.POINTER(_I)]
         lib.repro_torch_sw_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
-        lib.repro_torch_sw_solve.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+        lib.repro_torch_sw_plan_rows.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        lib.repro_torch_sw_solve.argtypes = [_P] * 7 + [_I] * 7 + [_P]
     elif name == "mcop_phase":
         lib.repro_torch_phase_solve.argtypes = (
             [_P] * 3 + [_I, ctypes.c_float, _I, _I, _P, _P]
         )
         lib.repro_torch_phase_step.argtypes = (
-            [_P] * 9 + [_I, _I, ctypes.c_float, _I, _P]
+            [_P] * 9 + [_I, _I, ctypes.c_float, _I, _I, _P]
         )
     else:
         lib.repro_torch_fused_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
@@ -419,13 +428,22 @@ def _plan(plan_fn, n: int, batch: int, graphs_per_block: int = 0) -> dict:
     return plan
 
 
+def _sw_plan_fn(full_rows: bool):
+    """B1's plan function: the warp variant up to the packed limit, or
+    (``full_rows``) the block variant at every n."""
+    lib = _library("mcop_sw")
+    if not full_rows:
+        return lib.repro_torch_sw_plan
+    return lambda n, batch, _graphs_per_block, out: lib.repro_torch_sw_plan_rows(n, batch, out)
+
+
 def solve_plan(kernel: str, n: int, batch: int, *, graphs_per_block: int = 0,
                device="cuda") -> dict:
     """:func:`_plan` of ``kernel`` (``"mcop_stoer_wagner_kernel"`` or
     ``"mcop_fused_solve_kernel"``) on ``device``, plus ``resident_graphs``
     (graphs the card works on at once)."""
     if kernel == "mcop_stoer_wagner_kernel":
-        plan_fn = _library("mcop_sw").repro_torch_sw_plan
+        plan_fn = _sw_plan_fn(False)
     else:
         plan_fn = _library("mcop_fused").repro_torch_fused_plan
     with torch.cuda.device(require_device(device)):
@@ -461,21 +479,34 @@ def mcop_stoer_wagner_kernel(
     w_local: torch.Tensor,  # (B, n) f32
     w_cloud: torch.Tensor,  # (B, n) f32
     pinned: torch.Tensor,   # (B, n) bool — True = unoffloadable or padding
+    *,
+    full_rows: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Solve a batch of MCOP instances on the inputs' device.
 
     CUDA tensors launch ``csrc/mcop_sw.cu`` on the current stream (no
     synchronisation; outputs and scratch come from ``torch.empty``); CPU
     tensors run :func:`stoer_wagner_plain`.  Returns ``(min_cuts (B,)
-    f32, local_masks (B, n) bool)``.  Each adjacency is symmetric with a
-    zero diagonal; dead/padded vertices must be encoded as pinned with
-    zero weights and zero incident edges.  Raises ``ValueError`` for
-    ``n > SW_MAX_N``.
+    f32, local_masks (B, n) bool)``.  Each adjacency has a zero diagonal;
+    dead/padded vertices must be encoded as pinned with zero weights and
+    zero incident edges.  Raises ``ValueError`` for ``n > SW_MAX_N``.
+
+    Symmetry: up to :func:`packed_limit` the kernel's warp variant reads
+    the upper triangle only, so it requires every adjacency of the batch
+    to be *exactly* symmetric; given one that is not, it answers for the
+    matrix mirrored from its upper triangle.  A caller whose batch is not
+    exactly symmetric passes ``full_rows=True``: the block variant then
+    runs at every n, reading rows and merging rows and columns as the
+    reference does (one block a graph: slower).  The wrapper does not test
+    the batch itself (that would synchronise with the device);
+    ``core.mcop`` tests its host copy of each bucket.  The plain version
+    needs neither.
     """
-    return _solve_sw(adj, w_local, w_cloud, pinned)
+    return _solve_sw(adj, w_local, w_cloud, pinned, full_rows=full_rows)
 
 
-def _solve_sw(adj, w_local, w_cloud, pinned, graphs_per_block: int = 0):
+def _solve_sw(adj, w_local, w_cloud, pinned, graphs_per_block: int = 0,
+              full_rows: bool = False):
     """:func:`mcop_stoer_wagner_kernel` with the graphs a block of its
     warp variant chosen by the caller (0: by the plan); the checks run it
     at two settings and compare the bits."""
@@ -502,13 +533,13 @@ def _solve_sw(adj, w_local, w_cloud, pinned, graphs_per_block: int = 0):
         return cuts, masks
     lib = _library("mcop_sw")
     with torch.cuda.device(dev):
-        plan = _plan(lib.repro_torch_sw_plan, n, b, graphs_per_block)
+        plan = _plan(_sw_plan_fn(full_rows), n, b, graphs_per_block)
         scratch = _scratch(plan, n, dev)
         err = lib.repro_torch_sw_solve(
             adj.data_ptr(), w_local.data_ptr(), w_cloud.data_ptr(),
             pinned.data_ptr(), cuts.data_ptr(), masks.data_ptr(),
             scratch.data_ptr(), b, n, plan["grid"], plan["threads"], plan["cpl"],
-            plan["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream,
+            plan["smem_bytes"], int(full_rows), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise KernelError(f"mcop_sw kernel launch refused (CUDA error {err}; B={b}, n={n}, {plan})")
@@ -668,8 +699,10 @@ class LoopState:
     """The state of ``kernels.ops.mcop_min_cut``'s loop after the pinned
     fold, on one device, in one buffer (one upload, one read-back):
 
-    ``packed`` the working matrix's packed upper triangle (f32, padded to
-    16 bytes), ``wl``/``wc`` the merged node costs, ``gains`` scratch,
+    ``packed`` the working matrix (f32, padded to 16 bytes): its packed
+    upper triangle, or with ``full`` the whole ``(n, n)`` matrix row-major
+    (for a graph that is not exactly symmetric with a zero diagonal),
+    ``wl``/``wc`` the merged node costs, ``gains`` scratch,
     ``label`` (int32) the surviving vertex each original vertex merged
     into, ``log`` ``(phases, 3)`` int32 ``(cut bits, s, t)`` of each phase,
     ``scal`` int32 ``[anchor, best cut's f32 bits]`` (the best starts at
@@ -679,10 +712,12 @@ class LoopState:
     _SECTIONS = ("packed", "wl", "wc", "gains", "label", "log", "scal", "cloud", "alive")
 
     def __init__(self, adj: np.ndarray, wl: np.ndarray, wc: np.ndarray,
-                 alive: np.ndarray, label: np.ndarray, src: int, phases: int, device):
+                 alive: np.ndarray, label: np.ndarray, src: int, phases: int, device,
+                 *, full: bool = False):
         n = int(wl.shape[0])
-        self.n, self.phases = n, phases
-        sizes = {"packed": tri_floats(n) * 4, "wl": 4 * n, "wc": 4 * n, "gains": 4 * n,
+        self.n, self.phases, self.full = n, phases, bool(full)
+        matrix = n * n if full else tri_floats(n)
+        sizes = {"packed": matrix * 4, "wl": 4 * n, "wc": 4 * n, "gains": 4 * n,
                  "label": 4 * n, "log": 12 * phases, "scal": 8, "cloud": n, "alive": n}
         offsets, at = {}, 0
         for name in self._SECTIONS:
@@ -694,7 +729,8 @@ class LoopState:
             o = offsets[name]
             return buf[o:o + count * np.dtype(dtype).itemsize].view(dtype)
 
-        view(host, "packed", np.float32, tri_floats(n))[:] = pack_triangle(adj)
+        view(host, "packed", np.float32, matrix)[:] = (
+            np.asarray(adj, np.float32).reshape(-1) if full else pack_triangle(adj))
         view(host, "wl", np.float32, n)[:] = wl
         view(host, "wc", np.float32, n)[:] = wc
         view(host, "label", np.int32, n)[:] = label
@@ -735,6 +771,8 @@ def mcop_phase_step(state: LoopState, phase: int, c_local_total: float, *,
     members of ``t``), the Algorithm-1 merge of ``t`` into ``s`` in f32
     (``wl``/``wc`` too), the label update, the anchor moved when ``t`` was
     the source, and ``(cut, s, t)`` written to row ``phase`` of the log.
+    The state's layout (``state.full``) picks the kernel's: packed rows,
+    or full rows staged up to n = 241 and read from L2 above.
 
     A CUDA state launches ``csrc/mcop_phase.cu``'s step kernel on the
     current stream and reads nothing back; ``rows`` picks where its rows
@@ -757,7 +795,7 @@ def mcop_phase_step(state: LoopState, phase: int, c_local_total: float, *,
     lib = _library("mcop_phase")
     with torch.cuda.device(dev):
         err = lib.repro_torch_phase_step(
-            *state.pointers, state.n, phase, ctot, _ROWS[rows],
+            *state.pointers, state.n, phase, ctot, _ROWS[rows], int(state.full),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -99,9 +99,15 @@ def mcop_min_cut(
     The host issues the launches and reads nothing back until the end,
     where one copy returns the best cut and its cloud mask.
     ``device="cpu"`` runs the same loop on the plain version of the step;
-    the default needs a GPU and raises ``KernelError`` without one.  The
-    adjacency must be symmetric with a zero diagonal (``ValueError``
-    otherwise), and ``n <= PHASE_MAX_N``.
+    the default needs a GPU and raises ``KernelError`` without one.
+    ``n <= PHASE_MAX_N``.
+
+    Any ``(n, n)`` adjacency is answered, as by the JAX package's loop: an
+    exactly symmetric one with a zero diagonal (what a WCG usually holds)
+    goes up as its packed upper triangle; any other (a WCG is symmetric
+    only to ``np.allclose``) goes up whole, and each launch reads full rows
+    (staged in shared memory up to n = 241, from L2 above) and merges rows
+    and columns as the reference does.
     """
     cut, mask, _ = _min_cut_run(adj, w_local, w_cloud, offloadable, device=device)
     return cut, mask
@@ -136,8 +142,8 @@ def _min_cut_state(adj, w_local, w_cloud, offloadable, *,
     if n > PHASE_MAX_N:
         raise ValueError(
             f"mcop_phase_kernel takes graphs of at most {PHASE_MAX_N} vertices, got n={n}")
-    if not np.array_equal(adj, adj.T) or np.any(np.diag(adj) != 0):
-        raise ValueError("adj must be symmetric with a zero diagonal (an undirected WCG)")
+    # the packed layout holds the upper triangle only
+    full = not (np.array_equal(adj, adj.T) and not np.diag(adj).any())
     alive = np.ones(n, bool)
     label = np.arange(n, dtype=np.int32)  # the surviving vertex each original vertex merged into
     c_total = float(w_local.sum())
@@ -159,4 +165,5 @@ def _min_cut_state(adj, w_local, w_cloud, offloadable, *,
     phases = int(alive.sum()) - 1
     if phases < 1:
         return None, c_total
-    return LoopState(adj, w_local, w_cloud, alive, label, src, phases, dev), c_total
+    state = LoopState(adj, w_local, w_cloud, alive, label, src, phases, dev, full=full)
+    return state, c_total

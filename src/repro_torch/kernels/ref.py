@@ -158,27 +158,38 @@ def mcop_phase_plain(
 def mcop_phase_step_plain(state, phase: int, c_local_total: float) -> None:
     """Phase ``phase`` of ``mcop_min_cut``'s loop on a ``LoopState`` whose
     tensors lie on the CPU, in place: :func:`mcop_phase_plain` on the
-    unpacked working matrix from the state's anchor; a strictly smaller cut
-    becomes the best, with the members of ``t`` (``label == t``) as its
-    cloud side; ``t`` is merged into ``s`` on the packed matrix (row ``s`` +=
-    row ``t`` off ``{s, t}``, row ``t`` zeroed: the full matrix's Algorithm 1
-    in the same f32 additions), ``wl``/``wc`` of ``t`` are added into ``s``,
+    working matrix (unpacked, or the full one) from the state's anchor; a
+    strictly smaller cut becomes the best, with the members of ``t``
+    (``label == t``) as its cloud side; ``t`` is merged into ``s`` (on the
+    packed matrix row ``s`` += row ``t`` off ``{s, t}`` and row ``t``
+    zeroed, the full matrix's Algorithm 1 in the same f32 additions; on the
+    full matrix also column ``s`` += column ``t``, ``adj[s, s] = 0`` and
+    column ``t`` zeroed), ``wl``/``wc`` of ``t`` are added into ``s``,
     ``t``'s members are relabelled ``s``, the anchor follows a merged source,
     and ``(cut bits, s, t)`` go to row ``phase`` of the log."""
     n = state.n
     src = int(state.scal[0])
-    cut, s, t = mcop_phase_plain(unpack_triangle(state.packed, n), state.wl - state.wc,
-                                 state.alive.to(torch.bool), src, c_local_total)
+    full = state.packed[: n * n].view(n, n) if state.full else None
+    cut, s, t = mcop_phase_plain(full if state.full else unpack_triangle(state.packed, n),
+                                 state.wl - state.wc, state.alive.to(torch.bool), src,
+                                 c_local_total)
     best = state.scal[1:2].view(torch.float32)
     if bool(cut < best[0]):
         best[0] = cut
         state.cloud[:] = (state.label == t).to(torch.uint8)
     idx = torch.arange(n)
-    on_s, on_t = triangle_index(s, idx, n), triangle_index(t, idx, n)
     rest = (idx != s) & (idx != t)
-    packed = state.packed
-    packed[on_s[rest]] = packed[on_s[rest]] + packed[on_t[rest]]
-    packed[on_t[idx != t]] = 0.0
+    if state.full:
+        full[s, rest] = full[s, rest] + full[t, rest]
+        full[rest, s] = full[rest, s] + full[rest, t]
+        full[s, s] = 0.0
+        full[t, :] = 0.0
+        full[:, t] = 0.0
+    else:
+        on_s, on_t = triangle_index(s, idx, n), triangle_index(t, idx, n)
+        packed = state.packed
+        packed[on_s[rest]] = packed[on_s[rest]] + packed[on_t[rest]]
+        packed[on_t[idx != t]] = 0.0
     state.wl[s] += state.wl[t]
     state.wc[s] += state.wc[t]
     state.alive[t] = 0

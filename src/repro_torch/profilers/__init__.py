@@ -1,6 +1,7 @@
-"""Profilers (paper §6): program information collection.  (The network
-and energy profilers of the JAX package are not ported yet.)"""
+"""Profilers (paper §6): program, network and energy information collection."""
 
+from repro_torch.profilers.energy import EnergyProfiler, EnergyReport
+from repro_torch.profilers.network import BandwidthSample, NetworkProfiler, SimulatedChannel
 from repro_torch.profilers.program import (
     app_profile_from_config,
     boundary_act_bytes,
@@ -11,6 +12,11 @@ from repro_torch.profilers.program import (
 )
 
 __all__ = [
+    "BandwidthSample",
+    "NetworkProfiler",
+    "SimulatedChannel",
+    "EnergyProfiler",
+    "EnergyReport",
     "app_profile_from_config",
     "boundary_act_bytes",
     "layer_flops",

@@ -108,7 +108,6 @@ from repro_torch.core.mcop import (
     DEFAULT_BUCKETS,
     MCOPResult,
     _bucket_size,
-    _single_device,
     mcop_batch,
 )
 from repro_torch.core.placement_cache import (
@@ -116,6 +115,7 @@ from repro_torch.core.placement_cache import (
     PlacementCache,
     profile_fingerprint,
 )
+from repro_torch.core.mcop_shard import resolve_mesh, runs_on_cpu, solver_shards
 from repro_torch.kernels.build import KernelError
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import NULL_SPAN, Tracer
@@ -493,6 +493,11 @@ class OffloadBroker:
                 per-(backend, bucket) timing, and scheduler queue
                 depth / queued bins / per-tenant deficits publish as
                 gauges each tick.
+      mesh:     solver fleet (``repro_torch.core.mcop_shard``): ``None``
+                (auto) and ``False`` keep one device, a ``SolverMesh``
+                shards every flush over its devices; resolved once into
+                ``self.mesh``.  Sharded flushes are bit-identical to
+                single-device ones.
 
     ``tracer``/``metrics`` are pure observers: with both detached
     (default) every instrumented path is bit-identical to the
@@ -520,10 +525,10 @@ class OffloadBroker:
         self.backend = backend
         self.buckets = tuple(buckets)
         self.device = device
-        # one device per broker: mesh=None/False are accepted, anything
-        # else names a solver fleet this package does not have
-        _single_device(mesh)
-        self._devices = 1
+        # solver fleet: None or False one device, a SolverMesh its
+        # devices; resolved once, every flush shards over it
+        self.mesh = resolve_mesh(mesh)
+        self._devices = 1 if self.mesh is None else solver_shards(self.mesh)
         self.clock = clock
         self.resilience = resilience
         self.fault_injector = fault_injector
@@ -1320,10 +1325,12 @@ class OffloadBroker:
                 return mcop_batch(
                     wb, backend=self.backend, buckets=(m,),
                     device=self.device,
+                    mesh=self.mesh,
+                    tracer=self.tracer,
                 )
         policy = ctx.policy
         breaker = policy.breaker if policy is not None else None
-        on_cpu = torch.device(self.device).type == "cpu"
+        on_cpu = runs_on_cpu(self.mesh, self.device)
         for attempt in range(ctx.attempts):
             if attempt:
                 ctx.retries += 1
@@ -1371,6 +1378,8 @@ class OffloadBroker:
                     out = mcop_batch(
                         use, backend=backend, buckets=(m,),
                         device=self.device,
+                        mesh=self.mesh,
+                        tracer=self.tracer,
                     )
                 if not all(math.isfinite(res.min_cut) for res in out):
                     raise RuntimeError(

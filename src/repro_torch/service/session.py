@@ -248,6 +248,7 @@ class BatchSessionGroup:
             sleep=self.broker._backoff_sleep,
             tracer=self.broker.tracer,
             metrics=self.broker.metrics,
+            mesh=self.broker.mesh,
         )
         self._staged = None
         self._reports.append(report)

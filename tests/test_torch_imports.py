@@ -33,7 +33,9 @@ def test_port_has_the_expected_modules():
         "kernels/flash_attention.py", "kernels/mamba_scan.py", "core/placement.py",
         "profilers/program.py", "serving/engine.py", "launch/serve.py",
         "service/wire.py", "service/server.py", "service/client.py",
-        "launch/serve_broker.py",
+        "launch/serve_broker.py", "core/mcop_shard.py", "launch/mesh.py",
+        "runtime/__init__.py", "runtime/sharding.py", "runtime/elastic.py",
+        "profilers/network.py", "profilers/energy.py",
     ):
         assert expected in names
 
@@ -72,6 +74,7 @@ import repro_torch.core, repro_torch.kernels, repro_torch.obs, repro_torch.servi
 import repro_torch.convert, repro_torch.configs, repro_torch.models.transformer
 import repro_torch.serving, repro_torch.launch.serve, repro_torch.profilers
 import repro_torch.core.placement, repro_torch.launch.serve_broker
+import repro_torch.core.mcop_shard, repro_torch.launch.mesh, repro_torch.runtime
 from repro_torch.kernels import build
 def refuse(*a, **k):
     raise AssertionError("the build was reached on the CPU")
@@ -123,7 +126,8 @@ def test_default_build_dir_is_inside_the_tree_and_ignored():
 ENTRIES = ["mcop_batch", "solve_envs", "mcop", "price_summary",
            "tick_sessions", "controller", "broker", "resilient_broker",
            "model_init", "model_cache", "engine", "serve_main", "placement_batch",
-           "min_cut", "serve_broker_main", "serve_broker_reference"]
+           "min_cut", "serve_broker_main", "serve_broker_reference",
+           "solver_mesh", "elastic_manager", "sharded_solve_envs"]
 
 _NO_GPU_CODE = """
 import json
@@ -156,6 +160,8 @@ sock = os.path.join(tempfile.mkdtemp(), "s.sock")
 
 from repro_torch.configs import get_config, reduce_config, SHAPES
 from repro_torch.core.placement import TPUV5E_TIER, plan_placement_batch
+from repro_torch.launch.mesh import make_solver_mesh
+from repro_torch.runtime import ElasticMeshManager
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models.transformer import Model
 from repro_torch.profilers import stage_specs
@@ -178,6 +184,13 @@ runs = {
         p, model, [env], np.ones((1, 6), bool)),
     "tick_sessions": tick_sessions,
     "min_cut": lambda: mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable),
+    # every CUDA device this process sees: none
+    "solver_mesh": lambda: make_solver_mesh(),
+    "elastic_manager": lambda: ElasticMeshManager(
+        stage_specs(zamba, SHAPES["decode_32k"]), TPUV5E_TIER, TPUV5E_TIER, backend="cuda"),
+    # a fleet of four shards on the default device
+    "sharded_solve_envs": lambda: T.solve_envs(
+        p, model, [env] * 13, mesh=make_solver_mesh(["cuda"] * 4)),
     "serve_broker_main": lambda: serve_broker_main(["--socket", sock]),
     # the default device is the GPU whatever the backend: never a silent host run
     "serve_broker_reference": lambda: serve_broker_main(
@@ -222,15 +235,20 @@ def test_device_cuda_raises_without_a_gpu(raised_without_a_gpu, entry):
 
 
 def test_mesh_is_single_device_only():
+    """``mesh=`` has the JAX package's contract (``resolve_mesh``): None and
+    False solve on one device here, a one-shard mesh collapses to it, and
+    anything that is not a ``SolverMesh`` raises ``TypeError``."""
     import repro_torch.core as T
+    from repro_torch.launch.mesh import make_solver_mesh
     from repro_torch.service import OffloadBroker
 
     g = T.paper_example_graph()
-    assert T.mcop_batch([g], backend="torch", device="cpu", mesh=None)[0].min_cut == 22.0
-    assert T.mcop_batch([g], backend="torch", device="cpu", mesh=False)[0].min_cut == 22.0
-    with pytest.raises(NotImplementedError):
+    for mesh in (None, False, make_solver_mesh(["cpu"])):
+        assert T.mcop_batch([g], backend="torch", device="cpu", mesh=mesh)[0].min_cut == 22.0
+        assert OffloadBroker(backend="torch", device="cpu", mesh=mesh).mesh is None
+    with pytest.raises(TypeError):
         T.mcop_batch([g], backend="torch", device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         OffloadBroker(backend="torch", device="cpu", mesh=object())
 
 

@@ -266,7 +266,7 @@ def mcop_variants() -> dict:
             raise SystemExit(log)
         lib = ctypes.CDLL(so)
         lib.repro_torch_sw_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        lib.repro_torch_sw_solve.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        lib.repro_torch_sw_solve.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         libs[name] = lib
 
@@ -288,7 +288,7 @@ def mcop_variants() -> dict:
             err = lib.repro_torch_sw_solve(
                 adj.data_ptr(), wl.data_ptr(), wc.data_ptr(), pin.data_ptr(),
                 cuts[name].data_ptr(), masks[name].data_ptr(), 0, k, n,
-                min(-(-k // gpb), resident), threads, cpl, smem,
+                min(-(-k // gpb), resident), threads, cpl, smem, 0,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise SystemExit(f"{name}: CUDA error {err}")
