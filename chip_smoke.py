@@ -31,10 +31,12 @@ one JSON object per line:
 3. ``model_kernel_checks`` — the flash-attention kernel (B4) and the Mamba2
                       scan kernel (B5) against their plain versions at the
                       hybrid model's prefill shapes and at GQA, odd-length
-                      and padded shapes (tolerances stated per shape); each
-                      B4 check launches the variant its dtype and head width
-                      call for (tensor cores: bf16 at hd 64 and 128; CUDA
-                      cores: the rest).
+                      and padded shapes (tolerances stated per shape), B4
+                      also at MLA's heads (q/k 192, v 128) at deepseek-v2's
+                      prefill (timed beside SDPA) and at the reduced pair
+                      (24, 16); each B4 check launches the variant its dtype
+                      and head widths call for (tensor cores: bf16 at (64,
+                      64), (128, 128) and (192, 128); CUDA cores: the rest).
 4. ``solve_plane``  — ``solve_envs`` / ``mcop_batch`` at full size.
 5. ``broker``       — a two-tenant ``OffloadBroker`` tick loop (100 000
                       batched sessions + 256 per-object sessions), one fused
@@ -64,7 +66,19 @@ one JSON object per line:
                       every B4 launch of a prefill on the tensor-core variant.
 7. ``serve_replay`` — the same engine at reduced width in f32 on the card and
                       on the CPU (plain versions), prompts of 4100-4608 tokens:
-                      greedy tokens equal, prefill logits within tolerance.
+                      greedy tokens equal, prefill logits within tolerance;
+                      then the same for qwen2-7b, deepseek-v2, qwen2-vl (over
+                      4096 tokens: B4's CUDA-core variant at (16, 16) and
+                      MLA's (24, 16)), seamless and xlstm, with the
+                      frontends' embeddings.
+   ``serve_families`` — qwen2-7b (28 of 28 layers), deepseek-v2-236b (3 of
+                      60: the dense one and two MoE), qwen2-vl-72b (4 of 80),
+                      seamless-m4t-large-v2 (24 + 24) and xlstm-1.3b (48 of
+                      48) at their published widths in bf16 (random weights
+                      from seed 0), one at a time, through the engine with
+                      the frontends' embeddings: one wave of 4 requests,
+                      16 new tokens each; B4 launched 28 / 3 / 4 / 0 / 0
+                      times a prefill, all on the tensor-core variant.
 8. ``min_cut``      — the per-phase kernel (B3) against its plain version on
                       single phases of 6-1024 vertices ((s, t) equal, cuts to
                       ``rtol=1e-5``), then ``kernels.ops.mcop_min_cut`` on the
@@ -86,13 +100,14 @@ one JSON object per line:
                       journal and snapshots, whose replies ``==`` the run that
                       was not killed.  Ticks/s and round-trip ms per submit.
 
-Four main paths, each driven with every launch counter set to 0 just before
+Main paths, each driven with every launch counter set to 0 just before
 it and read just after: phases 4-5 (the broker tick: B1, B2), phase
 ``solver_fleet`` (B1 and B2 once per shard holding a row), phase 6
 (serving: B4 19 times and B5 38 times per prefill; one B5 call is four
-launches of its passes, counted once) and phase 8 (the per-phase tier: B3
-once per MinCutPhase).  A kernel of a path that was not
-launched there fails the run; the server of phase 9 runs B1 in its own
+launches of its passes, counted once), each model of phase
+``serve_families`` (B4 once per attention layer of a prefill, no other
+kernel) and phase 8 (the per-phase tier: B3 once per MinCutPhase).  A
+kernel of a path that was not launched there fails the run; the server of phase 9 runs B1 in its own
 process, so the phase fails unless its tick reports show solves.  Then a
 ``kernel_work`` line counts the work of the MCOP kernels' timed shapes
 (absorb steps, row traffic, B3's chain and bound terms; computed from the
@@ -101,8 +116,10 @@ solve-plane shapes (kernel time x graphs the card works on at once / absorb
 steps) and of B3, and B3's absorb steps over the per-phase path, with its
 kernel time estimated from them and the device loop's timed shapes; a
 ``{"kernels": [...]}`` line gives, for all five kernels, its launches on
-its main path (B1 and B2 also on the fleet path), its measured time, its plain version's measured time, the
-time of one PyTorch call computing the same function where there is one,
+its main path (B1 and B2 also on the fleet path, B4 also on the families'
+paths and at MLA's heads), its measured time, its plain version's measured
+time, the time of one PyTorch call computing the same function where there
+is one,
 and its roofline bound at the main path's shape (B4 and B5 also their
 achieved TFLOP/s and share of the bound; B5's bound against the TF32 rate
 its products run at, the f32 rate's beside it); the GPU's name and power
@@ -193,11 +210,24 @@ FLASH_CHECKS = (
 # uniform error of 0.0156 fails wherever |o| < 2).  f32: sums in another
 # order.  Each check reports the mean |o| and the tolerance there.
 FLASH_TOL = {"bfloat16": (1e-5, 2.0**-7), "float32": (2e-5, 2e-5)}
+# MLA's heads: q/k of 192 and values of 128 (an 11th field, hd_v).  First the
+# deepseek-v2 prefill phase serve_families runs (128 heads, a wave of 4
+# prompts of up to 6144 tokens), timed for the kernels line beside SDPA on
+# the same inputs; then odd lengths with a window, full attention, and the
+# reduced pair (24, 16) of the f32 replay (CUDA cores, instantiated for it).
+MLA_FLASH_CHECKS = (
+    (4, 128, 128, 6144, 6144, 192, True, None, "bfloat16", "model", 128),
+    (2, 4, 4, 1000, 1337, 192, False, 300, "bfloat16", "heads", 128),
+    (1, 8, 8, 700, 700, 192, True, None, "float32", "model", 128),
+    (2, 4, 4, 4200, 4200, 24, True, None, "float32", "model", 16),
+)
 
 
-def expected_flash_variant(dtype: str, hd: int) -> str:
-    """The B4 variant a check of ``dtype`` and ``hd`` must launch."""
-    return "tensor_cores" if dtype == "bfloat16" and hd in (64, 128) else "cuda_cores"
+def expected_flash_variant(dtype: str, hd: int, hd_v: int | None = None) -> str:
+    """The B4 variant a check of ``dtype`` and ``(hd, hd_v)`` must launch."""
+    pair = (hd, hd if hd_v is None else hd_v)
+    return ("tensor_cores" if dtype == "bfloat16" and pair in ((64, 64), (128, 128), (192, 128))
+            else "cuda_cores")
 
 
 # Mamba2 scan checks: (B, S real, S padded, H, P, N, Q, layout).  The hybrid
@@ -220,6 +250,23 @@ SERVE = {"arch": "zamba2-1.2b", "requests": 8, "max_batch": 4,
 # CPU's matrix products) through two layers; atol = rtol x the logits' max
 REPLAY = {"requests": 4, "max_batch": 2, "prompt": (4100, 4608), "new_tokens": 8,
           "seed": 1, "logits_rtol": 1e-4}
+# the replay of the other families (one wave each, same tolerance): the
+# attention families with prompts over 4096 tokens, so the f32 (CUDA-core)
+# B4 runs at the reduced heads, (16, 16), and MLA's reduced pair (24, 16)
+REPLAY_FAMILIES = {"requests": 2, "max_batch": 2, "new_tokens": 6, "seed": 2, "archs": (
+    ("qwen2-7b", (4100, 4400)), ("deepseek-v2-236b", (4100, 4400)),
+    ("qwen2-vl-72b", (4100, 4400)), ("seamless-m4t-large-v2", (64, 200)),
+    ("xlstm-1.3b", (64, 160)))}
+# every other family served at its published widths in bf16 (random weights
+# from `seed`), one model at a time: (arch, layers kept or None for all,
+# prompt lengths, B4 launches a prefill: one per attention layer of a
+# prompt over 4096 tokens, all on the tensor-core variant)
+SERVE_FAMILIES = {"requests": 4, "max_batch": 4, "new_tokens": 16, "seed": 0, "models": (
+    ("qwen2-7b", None, (4608, 6144), 28),
+    ("deepseek-v2-236b", 3, (4608, 6144), 3),
+    ("qwen2-vl-72b", 4, (4608, 6144), 4),
+    ("seamless-m4t-large-v2", None, (64, 256), 0),
+    ("xlstm-1.3b", None, (128, 256), 0))}
 # the per-phase tier: B3 against its plain version on single phases at
 # phase_n (all vertices alive, and with holes after random merges), then
 # mcop_min_cut on `graphs` random graphs of sizes log-uniform over `sizes`
@@ -1389,26 +1436,29 @@ def bound(nbytes: float, flops: float, flop_rate: float):
 
 
 def flash_inputs(gen, case):
-    """q, k, v (B, H, S, hd) of a FLASH_CHECKS case, in its layout."""
-    b, h, hkv, sq, sk, hd, _, _, dtype, layout = case
+    """q, k (B, H, S, hd) and v (B, H, S, hd_v) of a FLASH_CHECKS or
+    MLA_FLASH_CHECKS case, in its layout."""
+    b, h, hkv, sq, sk, hd, _, _, dtype, layout, *rest = case
+    hd_v = rest[0] if rest else hd
 
-    def draw(heads, s):
-        shape = (b, heads, s, hd) if layout == "heads" else (b, s, heads, hd)
+    def draw(heads, s, width):
+        shape = (b, heads, s, width) if layout == "heads" else (b, s, heads, width)
         t = torch.randn(shape, generator=gen, device=DEVICE).to(getattr(torch, dtype))
         return t if layout == "heads" else t.transpose(1, 2)
 
-    return draw(h, sq), draw(hkv, sk), draw(hkv, sk)
+    return draw(h, sq, hd), draw(hkv, sk, hd), draw(hkv, sk, hd_v)
 
 
 def check_flash(rng, case, *, measure: bool) -> dict:
     from repro_torch.kernels.flash_attention import VARIANT_LAUNCHES, flash_attention_kernel
     from repro_torch.kernels.ref import flash_attention_plain
 
-    b, h, hkv, sq, sk, hd, causal, window, dtype, layout = case
+    b, h, hkv, sq, sk, hd, causal, window, dtype, layout, *rest = case
+    hd_v = rest[0] if rest else hd
     atol, rtol = FLASH_TOL[dtype]
     gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
     q, k, v = flash_inputs(gen, case)
-    variant = expected_flash_variant(dtype, hd)
+    variant = expected_flash_variant(dtype, hd, hd_v)
     before = dict(VARIANT_LAUNCHES)
     got = flash_attention_kernel(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
@@ -1424,7 +1474,8 @@ def check_flash(rng, case, *, measure: bool) -> dict:
         raise AssertionError(f"flash {case}: kernel vs plain max error {float(err.max())}, "
                              f"{worst} x the tolerance")
     mean_abs = float(want.abs().mean())
-    entry = {"name": "flash_attention_kernel", "shape": [b, h, hkv, sq, sk, hd],
+    entry = {"name": "flash_attention_kernel",
+             "shape": [b, h, hkv, sq, sk, hd] + ([hd_v] if rest else []),
              "variant": variant,
              "causal": causal, "window": window, "dtype": dtype, "layout": layout,
              "atol": atol, "rtol": rtol, "max_abs_err": float(err.max()),
@@ -1433,8 +1484,8 @@ def check_flash(rng, case, *, measure: bool) -> dict:
     del err
     if measure:
         pairs = attention_pairs(sq, sk, causal, window)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4.0 * hd * pairs * b * h
+        nbytes = (q.numel() + k.numel() + v.numel() + b * h * sq * hd_v) * q.element_size()
+        flops = 2.0 * (hd + hd_v) * pairs * b * h
         b_ms, b_by = bound(nbytes, flops,
                            BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S)
         idx = torch.arange(sq, device=DEVICE)[:, None], torch.arange(sk, device=DEVICE)[None]
@@ -1446,20 +1497,27 @@ def check_flash(rng, case, *, measure: bool) -> dict:
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
         def library():
+            if causal and window is None and sq == sk:  # the same band, SDPA's fast path
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
             return sdpa(q, k, v, attn_mask=band, enable_gqa=True)
 
-        lib = library().float()
-        # how the library's own arithmetic fares under the same tolerance
-        lib_err = float((lib - want).abs().max())
-        lib_outside = float(((lib - want).abs() > tol).float().mean())
-        del lib
+        try:
+            lib = library().float()
+        except RuntimeError as refusal:  # SDPA refuses the shape: say so, time nothing
+            entry["library_refused"] = str(refusal)[:300]
+            library = None
+        if library is not None:
+            # how the library's own arithmetic fares under the same tolerance
+            entry["library_max_abs_err"] = float((lib - want).abs().max())
+            entry["library_share_outside_tol"] = float(((lib - want).abs() > tol).float().mean())
+            del lib
         ms = cuda_ms(lambda: flash_attention_kernel(q, k, v, causal=causal, window=window),
                      reps=3)
         entry.update({
             "ms": ms, "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": cuda_ms(library, reps=3), "library_max_abs_err": lib_err,
-            "library_share_outside_tol": lib_outside, "pairs_per_head": pairs,
+            "library_ms": None if library is None else cuda_ms(library, reps=3),
+            "pairs_per_head": pairs,
         })
     return entry
 
@@ -1533,10 +1591,13 @@ def check_mamba(rng, case, *, measure: bool) -> dict:
 
 def phase_model_kernel_checks(rng) -> dict:
     """B4 and B5 against their plain versions; the first shape of each is
-    the hybrid model's prefill and is also timed for the kernels line."""
+    the hybrid model's prefill and is also timed for the kernels line, and
+    so is the first MLA shape (deepseek-v2's prefill)."""
     flash = [check_flash(rng, c, measure=i == 0) for i, c in enumerate(FLASH_CHECKS)]
+    mla = [check_flash(rng, c, measure=i == 0) for i, c in enumerate(MLA_FLASH_CHECKS)]
+    torch.cuda.empty_cache()
     mamba = [check_mamba(rng, c, measure=i == 0) for i, c in enumerate(MAMBA_CHECKS)]
-    return {"phase": "model_kernel_checks", "entries": flash + mamba}
+    return {"phase": "model_kernel_checks", "entries": flash + mla + mamba}
 
 
 # ----------------------------------------------------------------------
@@ -1550,6 +1611,7 @@ class StepWatch:
 
     def __init__(self, model):
         self.model = model
+        self.device = model.device
         self.prefill_logits = []
 
     def init_cache(self, batch_size, max_len):
@@ -1764,9 +1826,141 @@ def phase_serve_replay() -> dict:
         if err > REPLAY["logits_rtol"] * max(1.0, float(w_l.abs().max())):
             raise AssertionError(f"serve_replay: prefill logits differ by {err}")
         errs.append(err)
+    families = [replay_family(arch, prompt) for arch, prompt in REPLAY_FAMILIES["archs"]]
     return {"phase": "serve_replay", "requests": len(want), "waves": len(want_logits),
             "tokens_checked": sum(len(v) for v in want.values()),
-            "logits_max_abs_err": max(errs), "device_seconds": dev_s, "cpu_seconds": cpu_s}
+            "logits_max_abs_err": max(errs), "device_seconds": dev_s, "cpu_seconds": cpu_s,
+            "families": families}
+
+
+def frontend_extras(cfg, max_batch: int, gen, device, dtype) -> dict:
+    """The frontend stub's embeddings the engine hands to every prefill:
+    ``frontend_seq`` patch or frame embeddings a slot, N(0, 1) from ``gen``."""
+    key = {"vision_patches": "patch_embeds", "audio_frames": "frame_embeds"}.get(cfg.frontend)
+    if key is None:
+        return {}
+    shape = (max_batch, cfg.frontend_seq, cfg.d_model)
+    return {key: torch.randn(shape, generator=gen, device=device).to(dtype)}
+
+
+def replay_family(arch: str, prompt: tuple[int, int]) -> dict:
+    """One family's engine at reduced width in f32, on the card (kernels)
+    and on the CPU (plain versions): same parameters, extras and requests;
+    greedy tokens equal, prefill logits within REPLAY's tolerance, and on
+    the card B4 once per attention layer of each prefill over 4096 tokens,
+    on the CUDA-core variant."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.kernels.flash_attention import VARIANT_LAUNCHES
+    from repro_torch.models.transformer import CHUNKED_ABOVE, Model
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = reduce_config(get_config(arch), dtype="float32")
+    spec = {**REPLAY_FAMILIES, "prompt": prompt}
+    mb, (_, hi) = spec["max_batch"], prompt
+    params_cpu = Model(cfg, device="cpu").init(spec["seed"])
+    params_dev = copy.deepcopy(params_cpu).to(DEVICE)
+    gen = torch.Generator().manual_seed(spec["seed"])
+    extras = frontend_extras(cfg, mb, gen, "cpu", torch.float32)
+    runs = {}
+    for dev, params in ((DEVICE, params_dev), ("cpu", params_cpu)):
+        watch = StepWatch(Model(cfg, device=dev))
+        engine = ServingEngine(watch, params, ServingConfig(
+            max_batch=mb, max_prompt_len=hi, max_len=hi + spec["new_tokens"] + 1),
+            extras=extras, rng_seed=spec["seed"])
+        submit_requests(engine, spec, cfg.vocab_size)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        out = engine.run_to_completion()
+        runs[dev] = (out, watch.prefill_logits, time.perf_counter() - t0,
+                     all_launches(), dict(VARIANT_LAUNCHES))
+    (got, got_logits, dev_s, launches, variants), (want, want_logits, cpu_s, _, _) = (
+        runs[DEVICE], runs["cpu"])
+    if got != want:
+        raise AssertionError(f"serve_replay {arch}: greedy tokens differ: {got} vs {want}")
+    errs = []
+    for g_l, w_l in zip(got_logits, want_logits):
+        err = float((g_l - w_l).abs().max())
+        if err > REPLAY["logits_rtol"] * max(1.0, float(w_l.abs().max())):
+            raise AssertionError(f"serve_replay {arch}: prefill logits differ by {err}")
+        errs.append(err)
+    attention = cfg.family in ("dense", "moe", "vlm") and hi > CHUNKED_ABOVE
+    want_b4 = cfg.n_layers * len(want_logits) if attention else 0
+    if launches["flash_attention_kernel"] != want_b4 or variants["tensor_cores"]:
+        raise AssertionError(f"serve_replay {arch}: B4 launches {launches} {variants}, "
+                             f"expected {want_b4} on the CUDA cores")
+    heads = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim)
+             if cfg.attn_kind == "mla" else (cfg.resolved_head_dim,) * 2)
+    return {"arch": arch, "family": cfg.family, "requests": len(want),
+            "tokens_checked": sum(len(v) for v in want.values()),
+            "logits_max_abs_err": max(errs), "flash_launches": launches["flash_attention_kernel"],
+            # the (hd, hd_v) pair B4's CUDA-core variant was instantiated for
+            "flash_head_pair": list(heads) if attention else None,
+            "device_seconds": dev_s, "cpu_seconds": cpu_s}
+
+
+def phase_serve_families() -> dict:
+    """The dense, MoE (MLA), VLM, encoder-decoder and SSM families at their
+    published widths through the engine, one model at a time, each its own
+    main path: the launch counters are read around each model's wave."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import VARIANT_LAUNCHES
+    from repro_torch.models import common
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    spec = SERVE_FAMILIES
+    mb, new, seed = spec["max_batch"], spec["new_tokens"], spec["seed"]
+    lines = []
+    for arch, layers, (lo, hi), b4 in spec["models"]:
+        full = get_config(arch)
+        cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=DEVICE)
+        params = model.init(seed)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        extras = frontend_extras(cfg, mb, gen, DEVICE, common.dtype_of(cfg.dtype))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        engine = ServingEngine(StepWatch(model), params, ServingConfig(
+            max_batch=mb, max_prompt_len=hi, max_len=hi + new + 1),
+            extras=extras, rng_seed=seed)
+        submit_requests(engine, {**spec, "prompt": (lo, hi)}, cfg.vocab_size)
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()  # ---- this model's path starts here ----
+        waves = drive_engine(engine, torch.cuda.synchronize)
+        launches = all_launches()  # ---- and ends here ----
+        variants = dict(VARIANT_LAUNCHES)
+        want = {name: 0 for name in launches}
+        want["flash_attention_kernel"] = b4 * len(waves)
+        if launches != want or variants != {"tensor_cores": b4 * len(waves), "cuda_cores": 0}:
+            raise AssertionError(f"serve_families {arch}: launches {launches}, B4 variants "
+                                 f"{variants}; expected B4 {b4} a prefill on the tensor cores")
+        done = engine.finished
+        if len(done) != spec["requests"] or any(len(s_.generated) != new for s_ in done.values()):
+            raise AssertionError(f"serve_families {arch}: not every request got its tokens")
+        pre_s = sum(w["prefill_seconds"] for w in waves)
+        dec_s = sum(w["decode_seconds"] for w in waves)
+        line = {"phase": "serve_families", "arch": arch, "family": cfg.family,
+                "dtype": cfg.dtype, "params": sum(p_.numel() for p_ in params.parameters()),
+                "depth": f"{cfg.n_layers} of {full.n_layers}"
+                         + (f" (+{cfg.encoder_layers} encoder)" if cfg.encoder_layers else ""),
+                "init_seconds": init_s, "waves": waves,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "prefill_tokens_per_s": sum(w["prompt_tokens"] for w in waves) / pre_s,
+                "prefill_padded_tokens_per_s": sum(w["padded_tokens"] for w in waves) / pre_s,
+                "decode_tokens_per_s": sum(w["decode_tokens"] for w in waves) / dec_s,
+                "flash_launches": launches["flash_attention_kernel"],
+                "flash_launches_per_prefill": launches["flash_attention_kernel"] / len(waves),
+                "flash_variant_launches": variants}
+        emit(line)
+        lines.append({k: v for k, v in line.items() if k not in ("phase", "waves")})
+        del engine, model, params, extras
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"phase": "serve_families", "models": lines,
+            "flash_launches": sum(m["flash_launches"] for m in lines)}
 
 
 # ----------------------------------------------------------------------
@@ -2405,6 +2599,10 @@ def main() -> int:
     replay = phase_serve_replay()
     replay["seconds"] = time.perf_counter() - t0
     emit(replay)
+    t0 = time.perf_counter()
+    families = phase_serve_families()  # resets and reads the counters around each model
+    families["seconds"] = time.perf_counter() - t0
+    emit(families)
 
     t0 = time.perf_counter()
     min_cut = phase_min_cut(rng)  # resets and reads the counters around its path
@@ -2425,6 +2623,16 @@ def main() -> int:
     ):
         timed_entry = next(e for e in model_checks["entries"]
                            if e["name"] == name and "ms" in e)
+        if name == "flash_attention_kernel":  # its other paths and MLA's heads
+            mla = next(e for e in model_checks["entries"] if e["name"] == name
+                       and "ms" in e and len(e["shape"]) == 7)
+            timed_entry = {**timed_entry, "launches_serve_families": families["flash_launches"],
+                           "launches_by_model": {m["arch"]: m["flash_launches"]
+                                                 for m in families["models"]},
+                           "mla": {k: mla.get(k) for k in (
+                               "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_refused", "tflops",
+                               "bound_share")}}
         kernels["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{path}.cu",
@@ -2433,7 +2641,8 @@ def main() -> int:
             **{k: timed_entry[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "shape", "tflops", "bound_share")},
-            **{k: timed_entry[k] for k in ("variant", "bound_f32_ms") if k in timed_entry},
+            **{k: timed_entry[k] for k in ("variant", "bound_f32_ms", "launches_serve_families",
+                                           "launches_by_model", "mla") if k in timed_entry},
         })
     line = next(t for t in min_cut["timing"] if t["n"] == MIN_CUT["line_n"])
     kernels["kernels"].append({

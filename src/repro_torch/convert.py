@@ -151,26 +151,44 @@ def tree_to_state_dict(tree: Mapping, device="cpu", prefix: str = "") -> dict:
     return out
 
 
+# JAX tree keys holding layers stacked along leading axes: the number of
+# stacked axes, and each becomes one index of the port's module lists
+_STACKED = {"blocks": 1, "dense0": 1, "enc_blocks": 1, "dec_blocks": 1, "slstm": 1,
+            "mamba": 2, "mlstm": 2}
+# per-layer norm scales kept as one parameter: {"scale": (groups[, every], d)}
+_SCALE_STACKS = ("shared_ln", "shared_ln2", "ln_m", "ln_s")
+
+
 def model_params_from_jax(params_np: Mapping, cfg, device="cpu") -> dict:
     """The ``state_dict`` of the port's model holding the JAX package's
-    parameters ``params_np`` (its ``Model.init`` tree, leaves as numpy).
+    parameters ``params_np`` (its ``Model.init`` tree, leaves as numpy), for
+    every family.
 
-    Hybrid family only: the JAX tree stacks the Mamba2 layers as
-    ``(groups, every, …)`` leaves, which become ``mamba.{g}.{i}.…``, and
-    the per-invocation norm scales ``shared_ln.scale`` (groups, d) become
-    the ``shared_ln`` parameter."""
-    if cfg.family != "hybrid":
-        raise NotImplementedError(
-            f"parameter conversion for family {cfg.family!r} is not ported yet")
+    Leaves stacked over layers become per-layer modules: ``blocks``,
+    ``dense0``, ``enc_blocks``, ``dec_blocks`` and the sLSTM stack
+    ``slstm`` (layer axis) → ``blocks.{i}.…``; the Mamba2 stack ``mamba``
+    and the mLSTM stack ``mlstm`` ``(groups, every, …)`` → ``mamba.{g}.{i}.…``.
+    The stacked norm scales ``shared_ln``, ``shared_ln2``, ``ln_m`` and
+    ``ln_s`` (``{"scale": (groups[, every], d)}``) become one parameter each.
+    A mixture-of-experts layer's expert weights stay stacked ``(E, …)``, as
+    the port's ``MoE`` holds them."""
+    from repro_torch.models.transformer import FAMILIES
+
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown model family {cfg.family!r}")
     sd = {}
     for key, val in params_np.items():
-        if key == "mamba":
+        if key in _STACKED:
             stacked = tree_to_state_dict(val, "cpu")
             for name, t in stacked.items():
-                for g in range(t.shape[0]):
-                    for i in range(t.shape[1]):
-                        sd[f"mamba.{g}.{i}.{name}"] = t[g, i].clone().to(device)
-        elif key in ("shared_ln", "shared_ln2"):
+                if _STACKED[key] == 1:
+                    for i in range(t.shape[0]):
+                        sd[f"{key}.{i}.{name}"] = t[i].clone().to(device)
+                else:
+                    for g in range(t.shape[0]):
+                        for i in range(t.shape[1]):
+                            sd[f"{key}.{g}.{i}.{name}"] = t[g, i].clone().to(device)
+        elif key in _SCALE_STACKS:
             sd[key] = _tensor(val["scale"], device)
         else:
             sd.update(tree_to_state_dict(val, device, key + "."))

@@ -1,16 +1,18 @@
 // Online-softmax attention (causal / full / sliding window, GQA) for Hopper.
 //
 // Replaces the TPU kernel `flash_attention_kernel` (`_flash_body`) of the JAX
-// package's kernels/flash_attention.py.  q (B, H, Sq, hd), k/v (B, Hkv, Sk,
-// hd), f32 or bf16, each in any layout whose hd elements of a row are
-// contiguous: the batch, head and row strides are arguments, so the model's
+// package's kernels/flash_attention.py.  q/k (B, H|Hkv, S, hd), v (B, Hkv,
+// Sk, hd_v) and out (B, H, Sq, hd_v), f32 or bf16, each in any layout whose
+// elements of a row are contiguous: the batch, head and row strides are arguments, so the model's
 // (B, S, H, hd) tensors are read and written in place, with no copies.  Query
 // head h reads KV head h / (H / Hkv), never a repeated copy.  A key k is seen
 // by query q iff k < Sk, q < Sq, k <= q (causal) and k > q - window (window),
 // absolute indices, exactly as the Pallas body masks; so K and V need no
 // padding.  The running max m, sum l and accumulator are f32, as in the
 // Pallas body; a row whose keys are all masked ends at 0 / max(l, 1e-30) = 0.
-// The output is in q's dtype.
+// The output is in q's dtype.  v's head width hd_v may be narrower than q's
+// and k's hd: MLA (DeepSeek-V2) attends with q/k heads of 192 (128 without
+// position + 64 rotary) and value heads of 128.
 //
 // What bounds it on this card: operations.  At the hybrid model's prefill
 // (hd 64, window 4096) each query row meets up to 4096 keys and every (q, k)
@@ -20,9 +22,17 @@
 // is close behind.  Two variants, chosen by the caller (`variant`, fixed by
 // dtype and hd in kernels/flash_attention.py:flash_variant):
 //
-// * tensor cores (`flash_attention_kernel_tc`, bf16 at hd 64 and 128): one
-//   block of NWG warpgroups (4 warps each) per query tile of 64 NWG rows (NWG
-//   2 at hd 64, 4 at hd 128), each warpgroup owning 64 rows.  Q is staged
+// * tensor cores (`flash_attention_kernel_tc`, bf16 at (hd, hd_v) = (64,
+//   64), (128, 128) and (192, 128)): one block of NWG warpgroups (4 warps
+//   each) per query tile of 64 NWG rows (NWG 2 at hd 64, 4 above), each
+//   warpgroup owning 64 rows.  At (192, 128) shared memory holds Q (256 x
+//   192, 96 KB), a two-stage K ring (2 x 64 x 192, 48 KB) and a V ring (2 x
+//   64 x 128, 32 KB): 177 KB of the 227 a block may have; S = Q K^T is 12 k
+//   steps of 16 over 192, O += P V the same N = 128 accumulator as at hd 128.
+//   ptxas spills 32 bytes a thread there at 128 registers; NWG 2 (155
+//   registers, no spill) measured slower on an H100 at deepseek-v2's prefill
+//   (24.5-24.7 against 21.5-22.1 ms, tools/torch_kernel_probe.py
+//   flash-mla-variants), so it stays at NWG 4.  Q is staged
 //   once, K and V tiles of 64 keys go through a two-stage shared-memory ring
 //   by cp.async, 16 bytes a thread, so the next tile's load overlaps this
 //   tile's products; the tiles are stored in the 128-byte swizzle, which
@@ -41,10 +51,11 @@
 //   applied only on the key tiles the band's edge crosses; tiles wholly
 //   outside it are never visited.  Query tiles are launched heaviest first.
 //   Registers are held to 128 a thread at hd 64 so two blocks share an SM.
-// * CUDA cores (`flash_attention_kernel`, f32, and bf16 at hd 8 to 32): one
+// * CUDA cores (`flash_attention_kernel`, f32, and bf16 at hd 8 to 32, at
+//   the (hd, hd_v) pairs of `dispatch_hd` below): one
 //   block per (query tile of 64 rows, head, batch) walks the key tiles in
 //   order with Q, K, V staged in shared memory as f32; each thread keeps a
-//   4 x 4 tile of scores and a 4 x hd/16 tile of the accumulator in registers;
+//   4 x 4 tile of scores and a 4 x hd_v/16 tile of the accumulator in registers;
 //   products in f32 with explicit fmaf, exactly the Pallas body's arithmetic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,10 +74,10 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // Shared memory: Q tile and K tile row-padded to hd + 1 floats (conflict-free
-// column reads), V tile hd floats a row, P tile kBK + 1 floats a row.
-template <int HD>
+// column reads), V tile hd_v floats a row, P tile kBK + 1 floats a row.
+template <int HD, int HDV>
 constexpr int smem_floats() {
-  return kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1);
+  return kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HDV + kBQ * (kBK + 1);
 }
 
 // Element strides (batch, head, row) of q, k, v and out.
@@ -74,18 +85,18 @@ struct Strides {
   long long q[3], k[3], v[3], o[3];
 };
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int H,
                        int Hkv, int Sq, int Sk, int causal, int window,
                        float scale, Strides sd) {
-  constexpr int DJ = (HD + 15) / 16;  // accumulator columns per thread
+  constexpr int DJ = (HDV + 15) / 16;  // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // [kBQ][HD + 1]
   float* ks = qs + kBQ * (HD + 1);         // [kBK][HD + 1]
-  float* vs = ks + kBK * (HD + 1);         // [kBK][HD]
-  float* ps = vs + kBK * HD;               // [kBQ][kBK + 1]
+  float* vs = ks + kBK * (HD + 1);         // [kBK][HDV]
+  float* ps = vs + kBK * HDV;              // [kBQ][kBK + 1]
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q0 = blockIdx.x * kBQ;
@@ -123,7 +134,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / HD, d = e % HD;
       const bool in = k0 + r < Sk;
       ks[r * (HD + 1) + d] = in ? to_f32(kg[(k0 + r) * sd.k[2] + d]) : 0.f;
-      vs[r * HD + d] = in ? to_f32(vg[(k0 + r) * sd.v[2] + d]) : 0.f;
+    }
+    for (int e = tid; e < kBK * HDV; e += kThreads) {
+      const int r = e / HDV, d = e % HDV;
+      vs[r * HDV + d] = (k0 + r < Sk) ? to_f32(vg[(k0 + r) * sd.v[2] + d]) : 0.f;
     }
     __syncthreads();
 
@@ -191,8 +205,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
         const int d = tx + 16 * j;
-        if (d < HD) {
-          const float vv = vs[c * HD + d];
+        if (d < HDV) {
+          const float vv = vs[c * HDV + d];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
         }
@@ -208,44 +222,51 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int d = tx + 16 * j;
-      if (d < HD) store(og + qp * sd.o[2] + d, acc[i][j] * inv);
+      if (d < HDV) store(og + qp * sd.o[2] + d, acc[i][j] * inv);
     }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int Hkv, int Sq, int Sk, int causal,
                    int window, float scale, const Strides& sd, cudaStream_t st) {
-  const int smem = smem_floats<HD>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+  const int smem = smem_floats<HD, HDV>() * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD, HDV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, kThreads, smem, st>>>(
+  flash_attention_kernel<T, HD, HDV><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), H, Hkv, Sq, Sk, causal, window, scale, sd);
   return cudaGetLastError();
 }
 
+// The (hd, hd_v) pairs of the CUDA-core variant: equal widths 8 to 128, and
+// MLA's (192, 128) with the reduced (24, 16) the tests' small configs give.
 template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
+cudaError_t dispatch_hd(int hd, int hd_v, const void* q, const void* k, const void* v,
                         void* out, int B, int H, int Hkv, int Sq, int Sk,
                         int causal, int window, float scale, const Strides& sd,
                         cudaStream_t st) {
-  switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, window, scale, sd, st);
-    case 16: return launch<T, 16>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, window, scale, sd, st);
-    case 32: return launch<T, 32>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, window, scale, sd, st);
-    case 64: return launch<T, 64>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, window, scale, sd, st);
-    case 128: return launch<T, 128>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, window, scale, sd, st);
-    default: return cudaErrorInvalidValue;
-  }
+#define REPRO_FLASH_PAIR(A, C)                                                           \
+  if (hd == A && hd_v == C)                                                             \
+    return launch<T, A, C>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, window, scale, sd, st);
+  REPRO_FLASH_PAIR(8, 8)
+  REPRO_FLASH_PAIR(16, 16)
+  REPRO_FLASH_PAIR(32, 32)
+  REPRO_FLASH_PAIR(64, 64)
+  REPRO_FLASH_PAIR(128, 128)
+  REPRO_FLASH_PAIR(24, 16)
+  REPRO_FLASH_PAIR(192, 128)
+#undef REPRO_FLASH_PAIR
+  return cudaErrorInvalidValue;
 }
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core variant: bf16 q, k, v at hd 64 or 128.
+// Tensor-core variant: bf16 q, k, v at (hd, hd_v) (64, 64), (128, 128) or
+// (192, 128).
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -353,14 +374,15 @@ __device__ __forceinline__ void wgmma_o(float (&d)[32], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Shared memory of the wgmma variant: Q [64 NWG rows][HD], K and V [2
-// stages][kBK][HD], bf16, each as HD / 64 column halves of [rows][64] in
+// Shared memory of the wgmma variant: Q [64 NWG rows][HD], K [2
+// stages][kBK][HD] and V [2 stages][kBK][HDV], bf16, each as width / 64
+// column blocks of [rows][64] in
 // the 128-byte swizzle (Q and K K-major for S = Q K^T; V, rows = keys,
 // MN-major for P V).  A swizzled row chunk is one 16-byte cp.async.  1024
 // bytes more than the tiles: the base is rounded up to a 1024-byte boundary.
-template <int HD, int NWG>
+template <int HD, int HDV, int NWG>
 constexpr int smem_bytes() {
-  return (64 * NWG + 4 * kBK) * HD * 2 + 1024;
+  return (64 * NWG + 2 * kBK) * HD * 2 + 2 * kBK * HDV * 2 + 1024;
 }
 
 // rows [row0, row0 + rows) of a [*][HD] bf16 matrix into `dst` as above;
@@ -382,7 +404,7 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <int HD, int NWG, int MINB>
+template <int HD, int HDV, int NWG, int MINB>
 __global__ void __launch_bounds__(128 * NWG, MINB)
 flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -392,12 +414,12 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
                           Strides sd) {
   constexpr int NT = 128 * NWG;    // threads: NWG warpgroups
   constexpr int BQ = 64 * NWG;     // query rows per block, 64 per warpgroup
-  constexpr int NO = HD / 8;       // n tiles of O (8 dims each)
+  constexpr int NO = HDV / 8;      // n tiles of O (8 dims each)
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));  // [BQ][HD]
   __nv_bfloat16* ks = qs + BQ * HD;                                 // [2][kBK][HD]
-  __nv_bfloat16* vs = ks + 2 * kBK * HD;                            // [2][kBK][HD]
+  __nv_bfloat16* vs = ks + 2 * kBK * HD;                            // [2][kBK][HDV]
 
   // heaviest query tiles first: the light ones near the causal start fill the tail
   const int nq = (Sq + BQ - 1) / BQ;
@@ -424,14 +446,14 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
   load_swizzled<HD, NT>(qs, qg, sd.q[2], q0, BQ, Sq);
   if (kt_begin < kt_end) {
     load_swizzled<HD, NT>(ks, kg, sd.k[2], kt_begin * kBK, kBK, Sk);
-    load_swizzled<HD, NT>(vs, vg, sd.v[2], kt_begin * kBK, kBK, Sk);
+    load_swizzled<HDV, NT>(vs, vg, sd.v[2], kt_begin * kBK, kBK, Sk);
   }
   cp_async_commit();
 
-  float o[HD / 64][32];  // dims 64 h..64 h + 63: n tile j of them at o[h][4 j..]
+  float o[HDV / 64][32];  // dims 64 h..64 h + 63: n tile j of them at o[h][4 j..]
   float m[2], l[2];  // per row half (g, g + 8): running max, this lane's sum
 #pragma unroll
-  for (int h2 = 0; h2 < HD / 64; ++h2)
+  for (int h2 = 0; h2 < HDV / 64; ++h2)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[h2][i] = 0.f;
 #pragma unroll
@@ -446,14 +468,14 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
     const int k0 = kt * kBK;
     if (kt + 1 < kt_end) {  // the next tile's load overlaps this tile's products
       load_swizzled<HD, NT>(ks + (stage ^ 1) * kBK * HD, kg, sd.k[2], k0 + kBK, kBK, Sk);
-      load_swizzled<HD, NT>(vs + (stage ^ 1) * kBK * HD, vg, sd.v[2], k0 + kBK, kBK, Sk);
+      load_swizzled<HDV, NT>(vs + (stage ^ 1) * kBK * HDV, vg, sd.v[2], k0 + kBK, kBK, Sk);
     }
     cp_async_commit();
     cp_async_wait<1>();  // all but the newest group: Q and this tile are in
     fence_proxy_async();  // cp.async wrote them; wgmma reads them
     __syncthreads();
     const __nv_bfloat16* kst = ks + stage * kBK * HD;
-    const __nv_bfloat16* vst = vs + stage * kBK * HD;
+    const __nv_bfloat16* vst = vs + stage * kBK * HDV;
 
     // S = Q K^T: s[4 j + e] holds rows (g, g + 8) x keys k0 + 8 j + 2 t4 + {0, 1}
     float s[32];
@@ -506,7 +528,7 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
         }
       l[r] = l[r] * corr + sum;
 #pragma unroll
-      for (int h2 = 0; h2 < HD / 64; ++h2)
+      for (int h2 = 0; h2 < HDV / 64; ++h2)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           o[h2][4 * j + 2 * r] *= corr;
@@ -528,7 +550,7 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int h2 = 0; h2 < HD / 64; ++h2) {
+      for (int h2 = 0; h2 < HDV / 64; ++h2) {
         const uint64_t dv = wg_desc(vst + h2 * kBK * 64 + kk * 16 * 64);
         wgmma_o(o[h2], pl[kk], dv);
         wgmma_o(o[h2], ph[kk], dv);
@@ -558,17 +580,18 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD, int NWG, int MINB>
+template <int HD, int HDV, int NWG, int MINB>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
                    int H, int Hkv, int Sq, int Sk, int causal, int window, float scale,
                    const Strides& sd, cudaStream_t st) {
-  constexpr int smem = smem_bytes<HD, NWG>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel_tc<HD, NWG, MINB>,
+  constexpr int smem = smem_bytes<HD, HDV, NWG>();
+  static_assert(smem <= 232448, "a block may have 227 KB of shared memory");
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel_tc<HD, HDV, NWG, MINB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((Sq + 64 * NWG - 1) / (64 * NWG)) * B * H;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_attention_kernel_tc<HD, NWG, MINB><<<(unsigned)blocks, 128 * NWG, smem, st>>>(
+  flash_attention_kernel_tc<HD, HDV, NWG, MINB><<<(unsigned)blocks, 128 * NWG, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), B, H, Hkv,
       Sq, Sk, causal, window, scale * 1.4426950408889634f, sd);
@@ -579,15 +602,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 }  // namespace repro_torch
 
-// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = CUDA cores, 1 = tensor
-// cores (bf16 at hd 64 or 128 only; rows 16-byte aligned).  window < 0 means
+// hd: q's and k's head width; hd_v: v's and out's.  dtype: 0 = float32, 1 =
+// bfloat16.  variant: 0 = CUDA cores, 1 = tensor cores (bf16 at (hd, hd_v) =
+// (64, 64), (128, 128) or (192, 128) only; rows 16-byte aligned).  window < 0 means
 // no window.  strides: 12 element strides, (batch, head, row) of q, k, v and
 // out in that order.  Returns the CUDA error of the launch (0 on success);
 // runs on `stream`.
 extern "C" int repro_torch_flash_attention(const void* q, const void* k,
                                            const void* v, void* out, int B,
                                            int H, int Hkv, int Sq, int Sk,
-                                           int hd, int causal, int window,
+                                           int hd, int hd_v, int causal, int window,
                                            float scale, int dtype, int variant,
                                            const long long* strides,
                                            void* stream) {
@@ -602,22 +626,22 @@ extern "C" int repro_torch_flash_attention(const void* q, const void* k,
   }
   if (variant == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
-    switch (hd) {
-      case 64:
-        return (int)repro_torch::tc::launch<64, 2, 2>(q, k, v, out, B, H, Hkv, Sq, Sk,
-                                                      causal, window, scale, sd, st);
-      case 128:
-        return (int)repro_torch::tc::launch<128, 4, 1>(q, k, v, out, B, H, Hkv, Sq, Sk,
-                                                       causal, window, scale, sd, st);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
+    if (hd == 64 && hd_v == 64)
+      return (int)repro_torch::tc::launch<64, 64, 2, 2>(q, k, v, out, B, H, Hkv, Sq, Sk,
+                                                        causal, window, scale, sd, st);
+    if (hd == 128 && hd_v == 128)
+      return (int)repro_torch::tc::launch<128, 128, 4, 1>(q, k, v, out, B, H, Hkv, Sq, Sk,
+                                                          causal, window, scale, sd, st);
+    if (hd == 192 && hd_v == 128)
+      return (int)repro_torch::tc::launch<192, 128, 4, 1>(q, k, v, out, B, H, Hkv, Sq, Sk,
+                                                          causal, window, scale, sd, st);
+    return (int)cudaErrorInvalidValue;
   }
   cudaError_t err =
       dtype == 0
-          ? repro_torch::dispatch_hd<float>(hd, q, k, v, out, B, H, Hkv, Sq, Sk,
+          ? repro_torch::dispatch_hd<float>(hd, hd_v, q, k, v, out, B, H, Hkv, Sq, Sk,
                                             causal, window, scale, sd, st)
-          : repro_torch::dispatch_hd<__nv_bfloat16>(hd, q, k, v, out, B, H, Hkv,
+          : repro_torch::dispatch_hd<__nv_bfloat16>(hd, hd_v, q, k, v, out, B, H, Hkv,
                                                     Sq, Sk, causal, window, scale,
                                                     sd, st);
   return (int)err;

@@ -3,18 +3,21 @@ plain PyTorch version.
 
 :func:`flash_attention_kernel` is the counterpart of the JAX package's
 Pallas kernel of the same name: online-softmax attention, head-major
-``(B, H, Sq, hd) × (B, Hkv, Sk, hd)``, causal or full, optional sliding
-window, GQA by index.  Each tensor may be any view whose last dim is
+``(B, H, Sq, hd) × (B, Hkv, Sk, hd)`` with values ``(B, Hkv, Sk, hd_v)``,
+causal or full, optional sliding window, GQA by index.  ``hd_v`` may be
+narrower than ``hd``: MLA attends with q/k heads of 192 and value heads of
+128 (the Pallas kernel takes one ``hd``; the JAX package's chunked core
+cannot take MLA's heads at all).  Each tensor may be any view whose last dim is
 contiguous (the kernel takes the batch, head and row strides), so the
 model's ``(B, S, H, hd)`` tensors go in as ``transpose(1, 2)`` views.  A CUDA
 tensor launches the kernel or raises ``kernels.build.KernelError``; a CPU
 tensor runs :func:`~repro_torch.kernels.ref.flash_attention_plain`.
 
 The kernel has two variants behind one C entry point, chosen by
-:func:`flash_variant` from the dtype and head width alone: bfloat16 at hd 64
-and 128 runs on the tensor cores (``wgmma``, with P split into two bf16
-parts, and ``cp.async`` staging), float32 and the narrow bfloat16 heads on
-the CUDA cores.  ``LAUNCHES`` counts kernel launches, one per call whichever
+:func:`flash_variant` from the dtype and head widths alone: bfloat16 at
+``(hd, hd_v)`` (64, 64), (128, 128) and (192, 128) runs on the tensor cores
+(``wgmma``, with P split into two bf16 parts, and ``cp.async`` staging),
+float32 and the narrow bfloat16 heads on the CUDA cores.  ``LAUNCHES`` counts kernel launches, one per call whichever
 the variant; ``VARIANT_LAUNCHES`` counts them by variant.
 """
 
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.mcop_phase import _require
-from repro_torch.kernels.ref import flash_attention_plain
+from repro_torch.kernels.ref import attention_output_like, flash_attention_plain
 
 __all__ = [
     "flash_attention_kernel",
@@ -40,10 +43,11 @@ __all__ = [
     "reset_launches",
 ]
 
-# head widths the kernel is instantiated for
-FLASH_HEAD_DIMS = (8, 16, 32, 64, 128)
-# bfloat16 head widths the tensor-core variant is instantiated for
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+# (hd, hd_v) pairs the kernel is instantiated for: equal widths, MLA's
+# (192, 128), and (24, 16), MLA's pair at the configs' reduced widths
+FLASH_HEAD_DIMS = ((8, 8), (16, 16), (32, 32), (64, 64), (128, 128), (24, 16), (192, 128))
+# bfloat16 (hd, hd_v) pairs the tensor-core variant is instantiated for
+TENSOR_CORE_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANT_CODES = {"cuda_cores": 0, "tensor_cores": 1}
 
@@ -59,11 +63,13 @@ def reset_launches() -> None:
         VARIANT_LAUNCHES[variant] = 0
 
 
-def flash_variant(dtype: torch.dtype, hd: int) -> str:
-    """The kernel variant that takes inputs of ``dtype`` and head width
-    ``hd``: ``"tensor_cores"`` for bfloat16 at hd 64 or 128, else
-    ``"cuda_cores"``.  Nothing else decides it."""
-    return ("tensor_cores" if dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS
+def flash_variant(dtype: torch.dtype, hd: int, hd_v: int | None = None) -> str:
+    """The kernel variant that takes inputs of ``dtype``, q/k head width
+    ``hd`` and value head width ``hd_v`` (default ``hd``):
+    ``"tensor_cores"`` for bfloat16 at a pair of ``TENSOR_CORE_HEAD_DIMS``,
+    else ``"cuda_cores"``.  Nothing else decides it."""
+    pair = (hd, hd if hd_v is None else hd_v)
+    return ("tensor_cores" if dtype == torch.bfloat16 and pair in TENSOR_CORE_HEAD_DIMS
             else "cuda_cores")
 
 
@@ -79,7 +85,7 @@ def _library():
     lib = build.load("flash_attention")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.repro_torch_flash_attention.argtypes = (
-        [P] * 4 + [I] * 8 + [ctypes.c_float, I, I, ctypes.POINTER(ctypes.c_longlong), P]
+        [P] * 4 + [I] * 9 + [ctypes.c_float, I, I, ctypes.POINTER(ctypes.c_longlong), P]
     )
     return lib  # restype: ctypes' default c_int, the CUDA error code
 
@@ -87,25 +93,29 @@ def _library():
 def flash_attention_kernel(
     q: torch.Tensor,   # (B, H, Sq, hd)
     k: torch.Tensor,   # (B, Hkv, Sk, hd)
-    v: torch.Tensor,   # (B, Hkv, Sk, hd)
+    v: torch.Tensor,   # (B, Hkv, Sk, hd_v)
     *,
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention on the inputs' device; returns (B, H, Sq, hd) in q's dtype.
+    """Attention on the inputs' device; returns (B, H, Sq, hd_v) in q's dtype.
 
     Inputs are float32 or bfloat16, all of one dtype, each with a
     contiguous last dim; ``H`` is a multiple of ``Hkv``; ``window`` (if
-    given) is ``>= 0``.  On a CUDA tensor ``hd`` must be one of
-    ``FLASH_HEAD_DIMS``, and where the tensor-core variant takes the inputs
-    their rows are 16-byte aligned (each tensor's address and its batch,
-    head and row strides).  The output has q's strides where q is dense (a
-    ``transpose(1, 2)`` view of a contiguous tensor gives one back)."""
-    if q.ndim != 4 or k.ndim != 4:
-        raise ValueError(f"expected 4-D q and k, got {tuple(q.shape)}, {tuple(k.shape)}")
+    given) is ``>= 0``; ``scale`` defaults to ``1/sqrt(hd)``.  On a CUDA
+    tensor ``(hd, hd_v)`` must be one of ``FLASH_HEAD_DIMS``, and where the
+    tensor-core variant takes the inputs their rows are 16-byte aligned
+    (each tensor's address and its batch, head and row strides).  The
+    output has q's strides where q is dense and ``hd_v == hd`` (a
+    ``transpose(1, 2)`` view of a contiguous tensor gives one back); with a
+    narrower ``hd_v`` it is laid out in q's order of dims."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"expected 4-D q, k and v, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, h, sq, hd = (int(d) for d in q.shape)
     hkv, sk = int(k.shape[1]), int(k.shape[2])
+    hd_v = int(v.shape[3])
     if hkv == 0 or h % hkv:
         raise ValueError(f"query heads {h} are not a multiple of KV heads {hkv}")
     if q.dtype not in _DTYPE_CODES:
@@ -115,16 +125,17 @@ def flash_attention_kernel(
     dev = q.device
     _require(q, "q", (b, h, sq, hd), q.dtype, dev, layout="rows")
     _require(k, "k", (b, hkv, sk, hd), q.dtype, dev, layout="rows")
-    _require(v, "v", (b, hkv, sk, hd), q.dtype, dev, layout="rows")
+    _require(v, "v", (b, hkv, sk, hd_v), q.dtype, dev, layout="rows")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {dev}")
-    if hd not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention_kernel takes hd in {FLASH_HEAD_DIMS}, got {hd}")
-    variant = flash_variant(q.dtype, hd)
-    out = torch.empty_like(q)
+    if (hd, hd_v) not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention_kernel takes (hd, hd_v) in {FLASH_HEAD_DIMS}, "
+                         f"got {(hd, hd_v)}")
+    variant = flash_variant(q.dtype, hd, hd_v)
+    out = attention_output_like(q, hd_v)
     if out.numel() == 0:
         return out
     tensors = (q, k, v, out)
@@ -136,7 +147,7 @@ def flash_attention_kernel(
     with torch.cuda.device(dev):
         err = lib.repro_torch_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, hkv, sq, sk, hd, int(causal),
+            b, h, hkv, sq, sk, hd, hd_v, int(causal),
             -1 if window is None else min(int(window), 2**30),
             float(scale), _DTYPE_CODES[q.dtype], _VARIANT_CODES[variant],
             (ctypes.c_longlong * 12)(*strides),

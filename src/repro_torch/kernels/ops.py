@@ -29,13 +29,13 @@ __all__ = ["flash_attention", "mamba_chunk_scan", "mcop_min_cut"]
 def flash_attention(
     q: torch.Tensor,   # (B, S, H, hd) — model layout
     k: torch.Tensor,   # (B, S, Hkv, hd)
-    v: torch.Tensor,
+    v: torch.Tensor,   # (B, S, Hkv, hd_v)
     *,
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Returns (B, Sq, H, hd) in q's dtype (contiguous when q is)."""
+    """Returns (B, Sq, H, hd_v) in q's dtype (contiguous when q is)."""
     out = flash_attention_kernel(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window, scale=scale,

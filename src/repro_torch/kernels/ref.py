@@ -34,23 +34,36 @@ import torch
 from repro_torch.kernels.mcop_phase import NEG_INF as MCOP_NEG_INF
 from repro_torch.kernels.mcop_phase import triangle_index, unpack_triangle
 
-__all__ = ["NEG_INF", "flash_attention_plain", "mamba_chunk_scan_plain", "mcop_phase_plain",
-           "mcop_phase_step_plain"]
+__all__ = ["NEG_INF", "attention_output_like", "flash_attention_plain",
+           "mamba_chunk_scan_plain", "mcop_phase_plain", "mcop_phase_step_plain"]
 
 NEG_INF = -2.0**30
 _PLAIN_BLOCK_Q = 1024  # query rows scored at a time: bounds memory, not the result
 
 
+def attention_output_like(q: torch.Tensor, hd_v: int) -> torch.Tensor:
+    """An empty (B, H, Sq, hd_v) output: ``empty_like(q)`` at equal widths,
+    else dense in q's order of the first three dims (model-layout ``(B, S,
+    H, ·)`` storage for a ``transpose(1, 2)`` view)."""
+    if hd_v == q.shape[3]:
+        return torch.empty_like(q)
+    b, h, sq, _ = q.shape
+    if q.stride(1) < q.stride(2):
+        return torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device).transpose(1, 2)
+    return torch.empty((b, h, sq, hd_v), dtype=q.dtype, device=q.device)
+
+
 def flash_attention_plain(
     q: torch.Tensor,   # (B, H, Sq, hd)
     k: torch.Tensor,   # (B, Hkv, Sk, hd)
-    v: torch.Tensor,   # (B, Hkv, Sk, hd)
+    v: torch.Tensor,   # (B, Hkv, Sk, hd_v)
     *,
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention, head-major; returns (B, H, Sq, hd) in q's dtype.
+    """Attention, head-major; returns (B, H, Sq, hd_v) in q's dtype (``hd_v``
+    may differ from q's and k's ``hd``, as MLA's value heads do).
 
     Query head ``h`` reads KV head ``h // (H // Hkv)``.  A key ``k`` is
     seen by query ``q`` iff ``k <= q`` (causal) and ``k > q - window``
@@ -63,7 +76,8 @@ def flash_attention_plain(
     kf = k.to(torch.float32)
     vf = v.to(torch.float32)
     k_pos = torch.arange(sk, device=q.device)
-    out = torch.empty_like(q)
+    hd_v = v.shape[3]
+    out = attention_output_like(q, hd_v)
     for q0 in range(0, sq, _PLAIN_BLOCK_Q):
         q1 = min(sq, q0 + _PLAIN_BLOCK_Q)
         bq = q1 - q0
@@ -79,7 +93,7 @@ def flash_attention_plain(
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         p = torch.where(mask, p, 0.0)  # a fully-masked row is zero, not uniform
         l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        o = torch.matmul(p.view(b, hkv, rep * bq, sk), vf).view(b, h, bq, hd)
+        o = torch.matmul(p.view(b, hkv, rep * bq, sk), vf).view(b, h, bq, hd_v)
         out[:, :, q0:q1] = (o / l).to(q.dtype)
     return out
 

@@ -1,14 +1,20 @@
 """Serving entry point: batched requests through the KV-cache engine.
 
     python -m repro_torch.launch.serve --arch zamba2-1.2b --prompt-len 8192
+    python -m repro_torch.launch.serve --arch qwen2-vl-72b --reduced --device cpu
 
 First prints the paper's placement report for the serving stage graph:
 the decode pool and the prefill pool are the two tiers and MCOP decides
 which layer groups would move across under the configured interconnect.
 Then builds the model from ``--seed`` (random weights), serves
 ``--requests`` prompts of random length below ``--prompt-len`` and prints
-the throughput.  Everything runs on ``--device`` (default the GPU; without
-one this raises ``KernelError``).  Only the hybrid family is ported.
+the throughput.  Every architecture of ``configs`` serves (dense, MoE with
+GQA or MLA, VLM, encoder-decoder, hybrid, SSM).  The frontends' stubs are
+fed random embeddings drawn from ``--seed``: ``frontend_seq`` patch
+embeddings for the vision frontend (every prompt must then be at least
+that long: a ``--prompt-len`` not above ``frontend_seq`` is refused), frame
+embeddings for the audio one.  Everything runs on
+``--device`` (default the GPU; without one this raises ``KernelError``).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 
 def main(argv=None) -> int:
@@ -37,6 +44,7 @@ def main(argv=None) -> int:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.placement import TPUV5E_TIER, plan_placement
     from repro_torch.kernels.mcop_phase import require_device
+    from repro_torch.models import common
     from repro_torch.models.transformer import build_model
     from repro_torch.profilers.program import stage_specs
     from repro_torch.serving import ServingConfig, ServingEngine
@@ -60,6 +68,21 @@ def main(argv=None) -> int:
 
     model = build_model(cfg, device=device)
     params = model.init(args.seed)
+    extras = {}
+    lo = 4
+    if cfg.frontend != "none":
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        embeds = torch.randn((args.max_batch, cfg.frontend_seq, cfg.d_model),
+                             generator=gen, device=device).to(common.dtype_of(cfg.dtype))
+        if cfg.frontend == "vision_patches":
+            if args.prompt_len <= cfg.frontend_seq:
+                ap.error(f"--prompt-len {args.prompt_len}: {args.arch} splices "
+                         f"{cfg.frontend_seq} patch embeddings into every prompt; "
+                         f"give at least {cfg.frontend_seq + 1}")
+            extras["patch_embeds"] = embeds
+            lo = cfg.frontend_seq
+        else:
+            extras["frame_embeds"] = embeds
     engine = ServingEngine(
         model,
         params,
@@ -68,12 +91,13 @@ def main(argv=None) -> int:
             max_prompt_len=args.prompt_len,
             max_len=args.prompt_len + args.max_new_tokens + 1,
         ),
+        extras=extras,
         rng_seed=args.seed,
     )
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
     for _ in range(args.requests):
-        plen = int(rng.integers(4, args.prompt_len))
+        plen = int(rng.integers(lo, args.prompt_len))
         engine.submit(
             rng.integers(1, cfg.vocab_size, size=plen),
             max_new_tokens=args.max_new_tokens,

@@ -1,1 +1,2 @@
-"""Model stack: the hybrid (zamba2) family, layer by layer, in PyTorch."""
+"""Model stack: every family of the JAX package (dense, MoE with GQA or MLA,
+VLM, encoder-decoder, hybrid, SSM), layer by layer, in PyTorch."""

@@ -37,6 +37,7 @@ __all__ = [
     "linear",
     "rmsnorm",
     "apply_rope",
+    "apply_mrope",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -145,4 +146,28 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (B, S) integer."""
     ang = _rope_angles(positions, x.shape[-1], theta)    # (B, S, hd/2)
+    return _rotate(x, torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :])
+
+
+def apply_mrope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float,
+    sections: tuple[int, int, int],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, hd); positions: (B, S, 3),
+    the temporal / height / width position ids.
+
+    The hd/2 rotary frequencies split into three contiguous sections, each
+    driven by its own position stream; with three equal streams this is
+    :func:`apply_rope` exactly (the same angles, in the same order)."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover hd/2 = {hd // 2}")
+    s0, s1, _ = sections
+    ang = torch.cat([
+        _rope_angles(positions[..., 0], hd, theta)[..., :s0],
+        _rope_angles(positions[..., 1], hd, theta)[..., s0:s0 + s1],
+        _rope_angles(positions[..., 2], hd, theta)[..., s0 + s1:],
+    ], dim=-1)                                           # (B, S, hd/2)
     return _rotate(x, torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :])

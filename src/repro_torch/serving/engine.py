@@ -11,7 +11,8 @@ admission queue; each engine step either
   whole pool; finished slots keep decoding a pad token and are ignored).
 
 Per-slot state is host metadata; token and cache state stay on the
-model's device.  Sampling draws from a ``torch.Generator`` seeded with
+model's device.  ``extras`` (the frontends' ``patch_embeds`` or
+``frame_embeds``) go with every prefill, as in the JAX package's engine.  Sampling draws from a ``torch.Generator`` seeded with
 ``rng_seed`` on that device: greedy (temperature 0) tokens equal the JAX
 package's engine's for equal logits, sampled ones follow the same
 distribution but not the same numbers.
@@ -60,7 +61,8 @@ class ServingConfig:
 
 
 class ServingEngine:
-    def __init__(self, model: Model, params, cfg: ServingConfig, *, rng_seed: int = 0):
+    def __init__(self, model: Model, params, cfg: ServingConfig, *,
+                 extras: dict | None = None, rng_seed: int = 0):
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -72,7 +74,8 @@ class ServingEngine:
         # one pooled cache with one scalar length: slots advance in
         # lockstep, so a wave is admitted only when the pool is empty
         self.cache = model.init_cache(cfg.max_batch, cfg.max_len)
-        self.device = self.cache["attn_k"].device
+        self.device = torch.device(model.device)
+        self.extras = {k: v.to(self.device) for k, v in (extras or {}).items()}
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
         self._tokens = torch.full((cfg.max_batch, 1), cfg.pad_id, dtype=torch.long,
                                   device=self.device)
@@ -133,7 +136,8 @@ class ServingEngine:
                 p = st.request.prompt
                 toks[st.slot, plen - len(p):] = p
             logits, self.cache = self.model.prefill(
-                self.params, {"tokens": torch.from_numpy(toks).to(self.device)}, self.cache
+                self.params, {"tokens": torch.from_numpy(toks).to(self.device), **self.extras},
+                self.cache,
             )
             temps = np.array([
                 self.active[s].request.temperature if self._active_mask[s] else 0.0

@@ -82,3 +82,58 @@ def placement_key(e):
         bool(e.repartitioned),
         bool(e.cache_hit),
     )
+
+
+# ----------------------------------------------------------------------
+# Models: the same parameters in both packages, caches compared key by key
+# ----------------------------------------------------------------------
+
+
+def model_pair(arch, *, dtype="float32", seed=0, **overrides):
+    """(config, repro model, repro params, port model, port params) of the
+    reduced ``arch``: the JAX parameters carried into the port's model
+    through ``convert.model_params_from_jax``, its key set checked."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import ARCHITECTURES, reduce_config
+    from repro.models.transformer import Model as JModel
+    from repro_torch.configs import ARCHITECTURES as T_ARCHITECTURES
+    from repro_torch.configs import reduce_config as t_reduce_config
+    from repro_torch.models.transformer import Model as TModel
+
+    j_cfg = reduce_config(ARCHITECTURES[arch], dtype=dtype, **overrides)
+    t_cfg = t_reduce_config(T_ARCHITECTURES[arch], dtype=dtype, **overrides)
+    assert dataclasses.asdict(j_cfg) == dataclasses.asdict(t_cfg)
+    j_model = JModel(j_cfg)
+    j_params = j_model.init(jax.random.PRNGKey(seed))
+    t_model = TModel(t_cfg, device="cpu")
+    t_params = t_model.init(seed)
+    sd = convert.model_params_from_jax(jax.tree_util.tree_map(np.asarray, j_params), t_cfg)
+    assert set(sd) == set(t_params.state_dict())
+    t_params.load_state_dict(sd)
+    return t_cfg, j_model, j_params, t_model, t_params
+
+
+def flat_cache(cache, prefix=""):
+    """A nested cache dict as ``{"a/b": leaf}`` (leaves: arrays, tensors, ints)."""
+    out = {}
+    for key, val in cache.items():
+        if isinstance(val, dict):
+            out.update(flat_cache(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def hold_cache(t_cache, j_cache, tol):
+    """The port's cache holds the JAX cache's keys, length and values."""
+    got, want = flat_cache(t_cache), flat_cache(j_cache)
+    assert set(got) == set(want)
+    for key, val in want.items():
+        if key == "length":
+            assert got[key] == int(val)
+        else:
+            np.testing.assert_allclose(got[key].float().numpy(), np.asarray(val, np.float32),
+                                       atol=tol, rtol=tol, err_msg=key)

@@ -60,16 +60,17 @@ def edge_tile(q0, bq, k0, sq, sk, causal, window) -> bool:
 
 
 def emulate_tc(q, k, v, *, causal, window, split=True):
-    """B4's tensor-core arithmetic on bf16 (B, H, S, hd) tensors."""
+    """B4's tensor-core arithmetic on bf16 (B, H, S, hd) tensors; v's head
+    width may be narrower (MLA's (192, 128))."""
     b, h, sq, hd = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv, sk, hd_v = k.shape[1], k.shape[2], v.shape[3]
     bq = 128 if hd == 64 else 256
     f32 = torch.float32
     scale_log2 = torch.tensor(1.0 / math.sqrt(hd), dtype=f32) * torch.tensor(LOG2E, dtype=f32)
     qf = q.to(f32)
     kf = k.to(f32).repeat_interleave(h // hkv, dim=1)   # KV head h // (H / Hkv)
     vf = v.to(f32).repeat_interleave(h // hkv, dim=1)
-    out = torch.zeros((b, h, sq, hd), dtype=f32)
+    out = torch.zeros((b, h, sq, hd_v), dtype=f32)
     for q0 in range(0, sq, bq):
         rows = torch.arange(q0, min(q0 + bq, sq))
         q_last = int(rows[-1])
@@ -77,7 +78,7 @@ def emulate_tc(q, k, v, *, causal, window, split=True):
         k_lo = max(0, q0 - window + 1) if window is not None else 0
         m = torch.full((b, h, len(rows)), NEG_INF, dtype=f32)
         l = torch.zeros((b, h, len(rows)), dtype=f32)
-        o = torch.zeros((b, h, len(rows), hd), dtype=f32)
+        o = torch.zeros((b, h, len(rows), hd_v), dtype=f32)
         for k0 in range(k_lo // BK * BK, k_hi if k_hi > k_lo else 0, BK):
             keys = torch.arange(k0, min(k0 + BK, sk))
             s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)

@@ -35,7 +35,8 @@ def test_port_has_the_expected_modules():
         "service/wire.py", "service/server.py", "service/client.py",
         "launch/serve_broker.py", "core/mcop_shard.py", "launch/mesh.py",
         "runtime/__init__.py", "runtime/sharding.py", "runtime/elastic.py",
-        "profilers/network.py", "profilers/energy.py",
+        "profilers/network.py", "profilers/energy.py", "configs/deepseek_v2_236b.py",
+        "configs/qwen2_vl_72b.py", "configs/seamless_m4t_large_v2.py", "configs/xlstm_1p3b.py",
     ):
         assert expected in names
 
@@ -100,10 +101,21 @@ dt = torch.rand(1, 8, 2)
 y, h = ops.mamba_chunk_scan(x, dt, -dt, x[:, :, 0], x[:, :, 1], torch.zeros(1, 2, 4, 4),
                             chunk=4)
 assert y.shape == (1, 8, 2, 4) and h.shape == (1, 2, 4, 4)
-m = Model(reduce_config(get_config("zamba2-1.2b")), device="cpu")
-logits, cache = m.prefill(m.init(0), {"tokens": torch.ones(1, 20, dtype=torch.long)},
-                          m.init_cache(1, 24))
-assert logits.shape == (1, 256) and cache["length"] == 20
+from repro_torch.configs import ARCHITECTURES
+q, k, v = torch.randn(1, 8, 2, 24), torch.randn(1, 8, 2, 24), torch.randn(1, 8, 2, 16)
+assert ops.flash_attention(q, k, v).shape == (1, 8, 2, 16)
+for arch in sorted(ARCHITECTURES):   # every family, through the long-prompt route too
+    cfg = reduce_config(get_config(arch))
+    m = Model(cfg, device="cpu")
+    batch = {"tokens": torch.ones(1, 20, dtype=torch.long)}
+    if cfg.frontend != "none":
+        key = "patch_embeds" if cfg.frontend == "vision_patches" else "frame_embeds"
+        batch[key] = torch.zeros(1, 8, cfg.d_model, dtype=torch.bfloat16)
+    params = m.init(0)
+    logits, cache = m.prefill(params, batch, m.init_cache(1, 24))
+    assert logits.shape == (1, 256) and cache["length"] == 20, arch
+    logits, cache = m.decode_step(params, torch.ones(1, 1, dtype=torch.long), cache)
+    assert logits.shape == (1, 256) and cache["length"] == 21, arch
 assert build._LIBS == {}
 assert "jax" not in sys.modules and "repro" not in sys.modules
 print("ok")
@@ -127,7 +139,8 @@ ENTRIES = ["mcop_batch", "solve_envs", "mcop", "price_summary",
            "tick_sessions", "controller", "broker", "resilient_broker",
            "model_init", "model_cache", "engine", "serve_main", "placement_batch",
            "min_cut", "serve_broker_main", "serve_broker_reference",
-           "solver_mesh", "elastic_manager", "sharded_solve_envs"]
+           "solver_mesh", "elastic_manager", "sharded_solve_envs", "model_init_moe",
+           "engine_extras", "serve_main_encdec"]
 
 _NO_GPU_CODE = """
 import json
@@ -168,12 +181,16 @@ from repro_torch.profilers import stage_specs
 from repro_torch.serving import ServingConfig, ServingEngine
 
 zamba = reduce_config(get_config("zamba2-1.2b"))
+vlm = reduce_config(get_config("qwen2-vl-72b"))
 
 runs = {
     "model_init": lambda: Model(zamba).init(0),
     "model_cache": lambda: Model(zamba).init_cache(1, 8),
     "engine": lambda: ServingEngine(Model(zamba), None, ServingConfig()),
     "serve_main": lambda: serve_main(["--arch", "zamba2-1.2b", "--reduced"]),
+    "model_init_moe": lambda: Model(reduce_config(get_config("deepseek-v2-236b"))).init(0),
+    "engine_extras": lambda: ServingEngine(Model(vlm), None, ServingConfig(), extras={}),
+    "serve_main_encdec": lambda: serve_main(["--arch", "seamless-m4t-large-v2", "--reduced"]),
     "placement_batch": lambda: plan_placement_batch(
         stage_specs(zamba, SHAPES["decode_32k"]), TPUV5E_TIER, TPUV5E_TIER,
         inter_tier_bws=[1e9]),

@@ -288,10 +288,3 @@ def test_full_width_parameter_count_equals_jax():
     assert (mamba.in_proj.w.shape, mamba.conv_w.shape) == ((2048, 8384), (4, 4224))
     assert params.shared_attn.wq.w.dtype == torch.bfloat16
     assert len(params.mamba) * len(params.mamba[0]) == 38
-
-
-@pytest.mark.parametrize("arch", ["qwen2-7b", "deepseek-v2-236b", "xlstm-1.3b",
-                                  "seamless-m4t-large-v2", "qwen2-vl-72b"])
-def test_other_families_are_not_ported_yet(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TModel(T_ARCHITECTURES[arch], device="cpu")

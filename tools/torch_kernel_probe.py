@@ -5,6 +5,7 @@
 
     python3 tools/torch_kernel_probe.py wgmma-layout    # descriptor fields of wgmma operands
     python3 tools/torch_kernel_probe.py flash-variants  # B4 at the prefill shape, by design knob
+    python3 tools/torch_kernel_probe.py flash-mla-variants  # B4 at MLA's heads, by warpgroups
     python3 tools/torch_kernel_probe.py mamba-passes    # B5's four passes, device time each
     python3 tools/torch_kernel_probe.py mcop-variants   # B1's warp body, by design knob
 
@@ -16,6 +17,9 @@ without the P_lo product; exp2 left out), checks each against the plain
 version at the served prefill shape (bf16 4 x 32 x 8192 x 64, causal,
 window 4096) and times each in the order A, B, ..., ..., B, A; variants
 that change the arithmetic are timings only, their error is printed.
+``flash-mla-variants`` does the same for the tensor-core variant at MLA's
+(hd, hd_v) = (192, 128), 4 warpgroups as built against 2, at deepseek-v2's
+prefill shape (bf16 4 x 128 x 6144, causal).
 ``mamba-passes`` profiles one B5 call at the served prefill shape (f32 4 x
 64 heads x 32 chunks x 256, P = N = 64) and prints each pass's device time.
 ``mcop-variants`` builds ``csrc/mcop_sw.cu`` as it is and with one knob of
@@ -110,29 +114,43 @@ def wgmma_layout() -> dict:
 
 
 FLASH_SRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "flash_attention.cu")
-HD64 = "tc::launch<64, 2, 2>"
+HD64 = "tc::launch<64, 64, 2, 2>"
 FLASH_VARIANTS = {
     "as built (2 warpgroups, 2 blocks an SM)": [],
-    "2 warpgroups, 1 block an SM": [(HD64, "tc::launch<64, 2, 1>")],
-    "4 warpgroups, 1 block an SM": [(HD64, "tc::launch<64, 4, 1>")],
+    "2 warpgroups, 1 block an SM": [(HD64, "tc::launch<64, 64, 2, 1>")],
+    "4 warpgroups, 1 block an SM": [(HD64, "tc::launch<64, 64, 4, 1>")],
     "without the P_lo product": [("        wgmma_o(o[h2], pl[kk], dv);\n", "")],
     "without exp2": [("float p = ex2(fmaf(x, scale_log2, -m_new));",
                       "float p = fmaf(x, scale_log2, -m_new);")],
 }
 
 
-def flash_variants() -> dict:
+HD192 = "tc::launch<192, 128, 4, 1>"
+FLASH_MLA_VARIANTS = {
+    "as built (4 warpgroups)": [],
+    "2 warpgroups": [(HD192, "tc::launch<192, 128, 2, 1>")],
+}
+# probe -> (variants, the tensor-core kernel's template arguments as mangled,
+# (B, H, S, hd, hd_v, window))
+FLASH_PROBES = {
+    "flash-variants": (FLASH_VARIANTS, "ILi64ELi64E", (4, 32, 8192, 64, 64, 4096)),
+    "flash-mla-variants": (FLASH_MLA_VARIANTS, "ILi192ELi128E", (4, 128, 6144, 192, 128, None)),
+}
+
+
+def flash_variants(probe: str = "flash-variants") -> dict:
     from repro_torch.kernels.ref import flash_attention_plain
 
+    variants, mangled, (b, h, s, hd, hd_v, window) = FLASH_PROBES[probe]
     src = open(FLASH_SRC).read()
     procs = {}
-    for i, (name, edits) in enumerate(FLASH_VARIANTS.items()):
+    for i, (name, edits) in enumerate(variants.items()):
         text = src
         for old, new in edits:
             if old not in text:
                 raise SystemExit(f"variant {name!r}: {old!r} not in the source")
             text = text.replace(old, new)
-        path = os.path.join(OUT, f"flash_{i}.cu")
+        path = os.path.join(OUT, f"{probe}_{i}.cu")
         with open(path, "w") as f:
             f.write(text)
         procs[name] = (path[:-3] + ".so", nvcc(path, path[:-3] + ".so", "-Xptxas", "-v"))
@@ -146,31 +164,31 @@ def flash_variants() -> dict:
                                if "Used" in x or "spill" in x)
                       for i, line in enumerate(lines)
                       if "Compiling entry" in line and "flash_attention_kernel_tc" in line
-                      and "ILi64E" in line]
+                      and mangled in line]
         lib = ctypes.CDLL(so)
         lib.repro_torch_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         libs[name] = lib
 
-    b, h, s, hd, window = 4, 32, 8192, 64, 4096
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def draw():
-        return torch.randn((b, s, h, hd), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+    def draw(width):
+        return torch.randn((b, s, h, width), generator=gen,
+                           device="cuda").bfloat16().transpose(1, 2)
 
-    q, k, v = draw(), draw(), draw()
+    q, k, v = draw(hd), draw(hd), draw(hd_v)
     want = flash_attention_plain(q, k, v, causal=True, window=window).float()
     tol = 1e-5 + 2.0**-7 * want.abs()
 
     def run(name):
-        out = torch.empty_like(q)
+        out = torch.empty((b, s, h, hd_v), dtype=q.dtype, device="cuda").transpose(1, 2)
         strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
         err = libs[name].repro_torch_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, h, s, s, hd, 1,
-            window, 1.0 / hd**0.5, 1, 1, (ctypes.c_longlong * 12)(*strides),
-            torch.cuda.current_stream().cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, h, s, s, hd, hd_v,
+            1, -1 if window is None else window, 1.0 / hd**0.5, 1, 1,
+            (ctypes.c_longlong * 12)(*strides), torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(f"{name}: CUDA error {err}")
         return out
@@ -185,7 +203,7 @@ def flash_variants() -> dict:
         got = run(n).float()
         rows.append({"variant": n, "ms": times[n], "registers": regs[n],
                      "max_err_over_tol": float(((got - want).abs() / tol).max())})
-    return {"probe": "flash-variants", "shape": [b, h, h, s, s, hd], "window": window,
+    return {"probe": probe, "shape": [b, h, h, s, s, hd, hd_v], "window": window,
             "rows": rows}
 
 
@@ -323,8 +341,9 @@ def mcop_variants() -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("probes", nargs="+", choices=("wgmma-layout", "flash-variants",
-                                                      "mamba-passes", "mcop-variants"))
+    parser.add_argument("probes", nargs="+", choices=(
+        "wgmma-layout", "flash-variants", "flash-mla-variants", "mamba-passes",
+        "mcop-variants"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
@@ -332,6 +351,7 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     print(gpu_line(), flush=True)
     run = {"wgmma-layout": wgmma_layout, "flash-variants": flash_variants,
+           "flash-mla-variants": lambda: flash_variants("flash-mla-variants"),
            "mamba-passes": mamba_passes, "mcop-variants": mcop_variants}
     for name in args.probes:
         print(json.dumps(run[name]()), flush=True)
