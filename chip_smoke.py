@@ -37,6 +37,15 @@ one JSON object per line:
                       (24, 16); each B4 check launches the variant its dtype
                       and head widths call for (tensor cores: bf16 at (64,
                       64), (128, 128) and (192, 128); CUDA cores: the rest).
+                      Then the two backward kernels against autograd of the
+                      plain versions: B4-bwd at zamba2-1.2b's training shape
+                      (bf16, 2 x 32 heads x 8192, window 4096; timed beside
+                      SDPA's forward + backward), qwen2-7b's GQA 28/4 at
+                      (128, 128), odd and padded lengths, MLA's (192, 128)
+                      and (24, 16) in f32 and bf16; B5-bwd at zamba2-1.2b's
+                      training shape (2 x 64 heads x 32 chunks of 256), a
+                      ragged final chunk and the reduced widths (tolerances
+                      stated per dtype).
 4. ``solve_plane``  — ``solve_envs`` / ``mcop_batch`` at full size.
 5. ``broker``       — a two-tenant ``OffloadBroker`` tick loop (100 000
                       batched sessions + 256 per-object sessions), one fused
@@ -79,6 +88,18 @@ one JSON object per line:
                       the frontends' embeddings: one wave of 4 requests,
                       16 new tokens each; B4 launched 28 / 3 / 4 / 0 / 0
                       times a prefill, all on the tensor-core variant.
+   ``train``        — zamba2-1.2b at published widths and all 38 layers
+                      trained through ``launch/train.py``'s entry in bf16,
+                      2 x 8192 tokens a step, a warm-up step and five more,
+                      a checkpoint saved at step 3: losses finite and
+                      falling, tokens/s, peak memory, and every step's
+                      launches (B4 2 x 19, B4-bwd 19, B5 2 x 38, B5-bwd 38);
+                      then a run resumed from the step-3 checkpoint alone,
+                      whose losses must equal the first run's bit for bit.
+   ``train_replay`` — three training steps of reduced zamba2 and qwen2-7b
+                      in f32 at 4160 tokens on the card (kernels) and on
+                      the CPU (plain versions): loss and gradient norm
+                      within 1e-4 relative.
 8. ``min_cut``      — the per-phase kernel (B3) against its plain version on
                       single phases of 6-1024 vertices ((s, t) equal, cuts to
                       ``rtol=1e-5``), then ``kernels.ops.mcop_min_cut`` on the
@@ -106,7 +127,7 @@ it and read just after: phases 4-5 (the broker tick: B1, B2), phase
 (serving: B4 19 times and B5 38 times per prefill; one B5 call is four
 launches of its passes, counted once), each model of phase
 ``serve_families`` (B4 once per attention layer of a prefill, no other
-kernel) and phase 8 (the per-phase tier: B3 once per MinCutPhase).  A
+kernel), each step of phase ``train`` (B4, B4-bwd, B5, B5-bwd) and phase 8 (the per-phase tier: B3 once per MinCutPhase).  A
 kernel of a path that was not launched there fails the run; the server of phase 9 runs B1 in its own
 process, so the phase fails unless its tick reports show solves.  Then a
 ``kernel_work`` line counts the work of the MCOP kernels' timed shapes
@@ -115,7 +136,8 @@ inputs, not measured), the measured ns per absorb step of B1 and B2 at the
 solve-plane shapes (kernel time x graphs the card works on at once / absorb
 steps) and of B3, and B3's absorb steps over the per-phase path, with its
 kernel time estimated from them and the device loop's timed shapes; a
-``{"kernels": [...]}`` line gives, for all five kernels, its launches on
+``{"kernels": [...]}`` line gives, for all five kernels and the two
+backward kernels, its launches on
 its main path (B1 and B2 also on the fleet path, B4 also on the families'
 paths and at MLA's heads), its measured time, its plain version's measured
 time, the time of one PyTorch call computing the same function where there
@@ -250,6 +272,18 @@ SERVE = {"arch": "zamba2-1.2b", "requests": 8, "max_batch": 4,
 # CPU's matrix products) through two layers; atol = rtol x the logits' max
 REPLAY = {"requests": 4, "max_batch": 2, "prompt": (4100, 4608), "new_tokens": 8,
           "seed": 1, "logits_rtol": 1e-4}
+# training: zamba2-1.2b at published widths and depth through launch/train.py,
+# 2 x 8192 tokens a step, step 0 a warm-up, a checkpoint saved at step 3
+TRAIN = {"arch": "zamba2-1.2b", "seq_len": 8192, "global_batch": 2, "steps": 6,
+         "ckpt_at": 3, "seed": 0, "lr": 1e-3}
+TRAIN_KERNELS = ("flash_attention_kernel", "flash_attention_bwd_kernel",
+                 "mamba_chunk_scan_kernel", "mamba_chunk_scan_bwd_kernel")
+# three steps card vs CPU at reduced width in f32, s = 4160 > 4096 so the
+# attention runs B4 and B4-bwd; loss and grad norm: f32 sums in another
+# order through two layers and their backward, and one optimizer step
+# between readings, 1e-4 relative
+TRAIN_REPLAY = {"archs": ("zamba2-1.2b", "qwen2-7b"), "seq_len": 4160, "batch": 2,
+                "steps": 3, "seed": 3, "rtol": 1e-4}
 # the replay of the other families (one wave each, same tolerance): the
 # attention families with prompts over 4096 tokens, so the f32 (CUDA-core)
 # B4 runs at the reduced heads, (16, 16), and MLA's reduced pair (24, 16)
@@ -1419,7 +1453,8 @@ def reset_all_launches() -> None:
 def all_launches() -> dict:
     from repro_torch.kernels import flash_attention, mamba_scan, mcop_phase
 
-    return {**mcop_phase.LAUNCHES, **flash_attention.LAUNCHES, **mamba_scan.LAUNCHES}
+    return {**mcop_phase.LAUNCHES, **flash_attention.LAUNCHES, **mamba_scan.LAUNCHES,
+            **flash_attention.BWD_LAUNCHES, **mamba_scan.BWD_LAUNCHES}
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1589,6 +1624,187 @@ def check_mamba(rng, case, *, measure: bool) -> dict:
     return entry
 
 
+# B4-bwd checks, MLA_FLASH_CHECKS' fields (hd_v last).  First zamba2-1.2b's
+# training shape (bf16, 2 sequences of 8192, 32 heads of 64, window 4096),
+# timed for the kernels line beside SDPA's forward + backward; then
+# qwen2-7b's GQA 28/4 at (128, 128) over the train_replay length, odd and
+# padded lengths with a window on full attention in f32 and bf16, MLA's
+# (192, 128) and the reduced pair (24, 16) in f32 and bf16, and a narrow head.
+FLASH_BWD_CHECKS = (
+    (2, 32, 32, 8192, 8192, 64, True, 4096, "bfloat16", "model", 64),
+    (1, 28, 4, 4160, 4160, 128, True, None, "bfloat16", "model", 128),
+    (1, 8, 8, 4500, 4500, 64, True, 4096, "float32", "heads", 64),
+    (3, 2, 2, 17, 63, 8, False, 16, "float32", "heads", 8),
+    (2, 4, 2, 1000, 1337, 64, False, 300, "float32", "model", 64),
+    (2, 4, 2, 1000, 1337, 64, False, 300, "bfloat16", "model", 64),
+    (1, 8, 8, 700, 700, 192, True, None, "float32", "model", 128),
+    (2, 4, 4, 1000, 1337, 192, False, 300, "bfloat16", "heads", 128),
+    (2, 4, 4, 4200, 4200, 24, True, None, "float32", "model", 16),
+    (2, 4, 4, 1000, 1337, 24, False, 300, "bfloat16", "heads", 16),
+    (1, 8, 2, 333, 517, 32, True, 100, "bfloat16", "heads", 32),
+)
+# max |kernel - plain| of each gradient over its max |plain|.  f32: sums in
+# another order over up to 8192 keys, and P = exp(s - L) against the plain
+# version's exp(s - max) / sum, ~1e-6 of the largest gradient; 1e-4 leaves
+# room for the cancellation in dS = P (dP - D).  bf16: both sides round
+# each gradient to bf16 (one step is 2^-8 of the value) and the kernel's D
+# reads the bf16 output where autograd has the f32 one: 2^-7 of the largest.
+FLASH_BWD_TOL = {"bfloat16": 2.0**-7, "float32": 1e-4}
+FLASH_BWD_PLAIN_HEADS = 4  # query heads a call of the plain backward takes (its memory)
+# B5-bwd checks, MAMBA_CHECKS' fields: zamba2-1.2b's training shape (2 x 8192
+# tokens, 64 heads, 32 chunks of 256, P = N = 64), timed for the kernels line,
+# then a ragged final chunk (4100 steps padded to 4352, dt = 0 on the padding)
+# and the reduced model's widths.  Held like the forward: max |kernel -
+# plain| <= 1e-4 x max(1, max |plain|) for each gradient.
+MAMBA_BWD_CHECKS = (
+    (2, 8192, 8192, 64, 64, 64, 256, "model"),
+    (2, 4100, 4352, 64, 64, 64, 256, "heads"),
+    (2, 4100, 4112, 8, 16, 16, 16, "slices"),
+)
+
+
+def flash_bwd_plain_sliced(q, k, v, dout, *, causal, window):
+    """The plain backward (autograd through the plain version) over groups
+    of KV heads holding ``FLASH_BWD_PLAIN_HEADS`` query heads or more, one
+    call each: the whole input, in pieces autograd's memory allows."""
+    from repro_torch.kernels.ref import flash_attention_bwd_plain
+
+    hkv = k.shape[1]
+    rep = q.shape[1] // hkv
+    step = max(1, FLASH_BWD_PLAIN_HEADS // rep)
+    parts = [[], [], []]
+    for g in range(0, hkv, step):
+        qs, ks = slice(g * rep, (g + step) * rep), slice(g, g + step)
+        for i, t in enumerate(flash_attention_bwd_plain(
+                q[:, qs], k[:, ks], v[:, ks], dout[:, qs], causal=causal, window=window)):
+            parts[i].append(t)
+    return tuple(torch.cat(p_, dim=1) for p_ in parts)
+
+
+def hold_grads(tag, got, want, names, tol, *, floor=0.0) -> dict:
+    """Each gradient's max |got - want| against ``tol`` x max(floor, max
+    |want|); returns the errors."""
+    out = {}
+    for name, g_t, w_t in zip(names, got, want):
+        err = float((g_t.float() - w_t.float()).abs().max())
+        scale = max(floor, float(w_t.float().abs().max()))
+        if not err <= tol * scale:
+            raise AssertionError(f"{tag}: {name} kernel vs plain max error {err}, "
+                                 f"tolerance {tol} x {scale}")
+        out[name] = {"max_abs_err": err, "max_abs": scale, "err_over_tol": err / (tol * scale)}
+    return out
+
+
+def check_flash_bwd(rng, case, *, measure: bool) -> dict:
+    from repro_torch.kernels.flash_attention import (
+        BWD_LAUNCHES, flash_attention_bwd_kernel, flash_attention_kernel,
+    )
+
+    b, h, hkv, sq, sk, hd, causal, window, dtype, layout, hd_v = case
+    tol = FLASH_BWD_TOL[dtype]
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    q, k, v = flash_inputs(gen, case)
+    shape = (b, h, sq, hd_v) if layout == "heads" else (b, sq, h, hd_v)
+    dout = torch.randn(shape, generator=gen, device=DEVICE).to(q.dtype)
+    dout = dout if layout == "heads" else dout.transpose(1, 2)
+    out = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    before = BWD_LAUNCHES["flash_attention_bwd_kernel"]
+    got = flash_attention_bwd_kernel(q, k, v, out, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if BWD_LAUNCHES["flash_attention_bwd_kernel"] - before != 1:
+        raise AssertionError(f"flash bwd {case}: the backward kernel did not launch once")
+    want, plain_ms = timed(lambda: flash_bwd_plain_sliced(q, k, v, dout, causal=causal,
+                                                          window=window))
+    errs = hold_grads(f"flash bwd {case}", got, want, ("dq", "dk", "dv"), tol)
+    del want
+    entry = {"name": "flash_attention_bwd_kernel", "shape": [b, h, hkv, sq, sk, hd, hd_v],
+             "causal": causal, "window": window, "dtype": dtype, "layout": layout,
+             "tol": tol, "grads": errs,
+             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+             "max_err_over_tol": max(e["err_over_tol"] for e in errs.values())}
+    if measure:
+        pairs = attention_pairs(sq, sk, causal, window)
+        nbytes = (2 * (q.numel() + k.numel() + v.numel())
+                  + 2 * out.numel()) * q.element_size()
+        # the function's products a visible pair: S again (hd), dP = dout v^T
+        # (hd_v), dv (hd_v), dq and dk (hd each)
+        flops = 2.0 * (3 * hd + 2 * hd_v) * pairs * b * h
+        b_ms, b_by = bound(nbytes, flops,
+                           BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S)
+        ms = cuda_ms(lambda: flash_attention_bwd_kernel(q, k, v, out, dout, causal=causal,
+                                                        window=window), reps=2)
+        idx = torch.arange(sq, device=DEVICE)[:, None], torch.arange(sk, device=DEVICE)[None]
+        band = torch.ones((sq, sk), dtype=torch.bool, device=DEVICE)
+        if causal:
+            band &= idx[1] <= idx[0]
+        if window is not None:
+            band &= idx[1] > idx[0] - window
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+        def library():  # SDPA's forward and backward on the same inputs
+            o_ = sdpa(*leaves, attn_mask=band, enable_gqa=True)
+            return torch.autograd.grad(o_, leaves, dout)
+
+        try:
+            library()
+            lib_ms = cuda_ms(library, reps=2)
+        except RuntimeError as refusal:  # SDPA refuses the shape: say so, time nothing
+            entry["library_refused"] = str(refusal)[:300]
+            lib_ms = None
+        entry.update({"ms": ms, "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms, "library": "sdpa forward + backward",
+                      "pairs_per_head": pairs})
+    return entry
+
+
+def check_mamba_bwd(rng, case, *, measure: bool) -> dict:
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.kernels.ref import mamba_chunk_scan_bwd_plain
+
+    b, s_real, s, h, p, n, q, layout = case
+    nc = s // q
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    x, dt, ld, bm, cm, h0 = mamba_inputs(gen, case)
+    _, _, states = mamba_scan._scan(x, dt, ld, bm, cm, h0)
+    dy = torch.randn(x.shape, generator=gen, device=DEVICE)
+    dh = torch.randn(h0.shape, generator=gen, device=DEVICE)
+    before = mamba_scan.BWD_LAUNCHES["mamba_chunk_scan_bwd_kernel"]
+    got = mamba_scan.mamba_chunk_scan_bwd_kernel(x, dt, ld, bm, cm, states, dy, dh)
+    torch.cuda.synchronize()
+    if mamba_scan.BWD_LAUNCHES["mamba_chunk_scan_bwd_kernel"] - before != 1:
+        raise AssertionError(f"mamba bwd {case}: the backward kernel did not launch once")
+    want, plain_ms = timed(lambda: mamba_chunk_scan_bwd_plain(x, dt, ld, bm, cm, h0, dy, dh))
+    names = ("dx", "ddt", "dld", "dbm", "dcm", "dh0")
+    errs = hold_grads(f"mamba bwd {case}", got, want, names, MAMBA_RTOL, floor=1.0)
+    del want
+    entry = {"name": "mamba_chunk_scan_bwd_kernel", "shape": [b, h, nc, q, p, n],
+             "real_steps": s_real, "layout": layout, "tol": MAMBA_RTOL, "grads": errs,
+             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+             "max_err_over_tol": max(e["err_over_tol"] for e in errs.values())}
+    if measure:
+        pairs = q * (q + 1) // 2
+        # per (batch, chunk) C B^T; per (batch, head, chunk) the four
+        # triangular products (D, W^T dy, V C, V B) and five state products
+        # (the chunk's part of the state gradient, g B, g^T u, h^T dy, h C)
+        flops = 2.0 * b * nc * pairs * n + 2.0 * b * h * nc * (
+            pairs * (2 * p + 2 * n) + 5 * q * p * n)
+        nbytes = 4 * (2 * x.numel() + 3 * dt.numel() + 2 * ld.numel() + 2 * bm.numel()
+                      + 2 * cm.numel() + 2 * dh.numel() + states.numel() + h0.numel())
+        # bounded as B5 is: f32 products at the card's peak for them (the
+        # tensor cores as TF32), the CUDA cores' f32 rate, which this kernel
+        # runs on, beside it
+        b_ms, b_by = bound(nbytes, flops, TF32_FLOP_PER_S)
+        f32_ms, _ = bound(nbytes, flops, FP32_FLOP_PER_S)
+        ms = cuda_ms(lambda: mamba_scan.mamba_chunk_scan_bwd_kernel(
+            x, dt, ld, bm, cm, states, dy, dh), reps=3)
+        entry.update({"ms": ms, "tflops": flops / ms / 1e9, "bound_share": b_ms / ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "bound_f32_ms": f32_ms, "library_ms": None})
+    return entry
+
+
 def phase_model_kernel_checks(rng) -> dict:
     """B4 and B5 against their plain versions; the first shape of each is
     the hybrid model's prefill and is also timed for the kernels line, and
@@ -1597,7 +1813,15 @@ def phase_model_kernel_checks(rng) -> dict:
     mla = [check_flash(rng, c, measure=i == 0) for i, c in enumerate(MLA_FLASH_CHECKS)]
     torch.cuda.empty_cache()
     mamba = [check_mamba(rng, c, measure=i == 0) for i, c in enumerate(MAMBA_CHECKS)]
-    return {"phase": "model_kernel_checks", "entries": flash + mla + mamba}
+    torch.cuda.empty_cache()
+    flash_bwd = [check_flash_bwd(rng, c, measure=i == 0)
+                 for i, c in enumerate(FLASH_BWD_CHECKS)]
+    torch.cuda.empty_cache()
+    mamba_bwd = [check_mamba_bwd(rng, c, measure=i == 0)
+                 for i, c in enumerate(MAMBA_BWD_CHECKS)]
+    torch.cuda.empty_cache()
+    return {"phase": "model_kernel_checks",
+            "entries": flash + mla + mamba + flash_bwd + mamba_bwd}
 
 
 # ----------------------------------------------------------------------
@@ -1961,6 +2185,233 @@ def phase_serve_families() -> dict:
         torch.cuda.empty_cache()
     return {"phase": "serve_families", "models": lines,
             "flash_launches": sum(m["flash_launches"] for m in lines)}
+
+
+# ----------------------------------------------------------------------
+# Phases 7b and 7c: training the hybrid model
+# ----------------------------------------------------------------------
+
+
+def train_argv(ckpt_dir: str) -> list[str]:
+    spec = TRAIN
+    return ["--arch", spec["arch"], "--seq-len", str(spec["seq_len"]),
+            "--global-batch", str(spec["global_batch"]), "--steps", str(spec["steps"]),
+            "--seed", str(spec["seed"]), "--lr", str(spec["lr"]), "--log-every", "1",
+            "--ckpt-dir", ckpt_dir,
+            "--ckpt-every", str(spec["ckpt_at"]), "--device", DEVICE]
+
+
+def train_step_launches(record: list):
+    """A hook of ``launch.train.run``: each step's launches of B4, B4-bwd,
+    B5 and B5-bwd, read and zeroed after the step."""
+    def hook(step, metrics):
+        launches = all_launches()
+        record.append({k: launches[k] for k in TRAIN_KERNELS})
+        reset_all_launches()
+    return hook
+
+
+def phase_train() -> dict:
+    """zamba2-1.2b at published widths and depth trained through
+    ``launch/train.py``'s entry (bf16, 2 x 8192 tokens a step, one warm-up
+    step and five measured), a checkpoint saved at step 3; then a second
+    run from that checkpoint alone, whose steps must give the first run's
+    losses bit for bit: the entry runs with
+    ``torch.use_deterministic_algorithms(True)`` on, and the kernels are
+    deterministic by design.  The loss must be finite at every step and
+    fall: the last two steps' mean below step 0's loss (step 1 overshoots
+    it at the first full learning rate, so a window holding step 1 is no
+    evidence).  Every step launches B4 twice per shared
+    block (forward and remat's recompute: 2 x 19), B4-bwd once (19), B5
+    twice per Mamba2 layer (2 x 38) and B5-bwd once (38).  Last,
+    ``train_step_breakdown`` outside the counted path."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launch
+
+    cfg = get_config(TRAIN["arch"])
+    groups = cfg.n_layers // cfg.shared_attn_every
+    want = {"flash_attention_kernel": 2 * groups, "flash_attention_bwd_kernel": groups,
+            "mamba_chunk_scan_kernel": 2 * cfg.n_layers,
+            "mamba_chunk_scan_bwd_kernel": cfg.n_layers}
+    ckpt = tempfile.mkdtemp(prefix="smoke_train_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        full_launches: list = []
+        reset_all_launches()  # ---- this slice's training path starts here ----
+        full = train_launch.run(train_argv(ckpt), hooks=[train_step_launches(full_launches)])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # ---- and ends here (each step's launches read by the hook) ----
+        for step, launches in enumerate(full_launches):
+            if launches != want:
+                raise AssertionError(f"train: step {step} launched {launches}, expected {want}")
+        # the run saved steps 3 and 6: keep step 3 alone and resume from it
+        t0 = time.perf_counter()
+        shutil.rmtree(os.path.join(ckpt, f"step_{TRAIN['steps']:09d}"))
+        resumed = train_launch.run(train_argv(ckpt))
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    hist = full["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses not finite: {losses}")
+    measured = hist[1:]  # step 0 is the warm-up
+    if not np.mean(losses[-2:]) < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    if resumed["start"] != TRAIN["ckpt_at"]:
+        raise AssertionError(f"train: resumed from step {resumed['start']}")
+    again = [h["loss"] for h in resumed["history"]]
+    if again != losses[TRAIN["ckpt_at"]:]:
+        raise AssertionError(f"train: the resumed run's losses {again} differ from "
+                             f"{losses[TRAIN['ckpt_at']:]}")
+    tokens = TRAIN["seq_len"] * TRAIN["global_batch"]
+    step_s = [h["seconds"] for h in measured]
+    torch.use_deterministic_algorithms(True)  # as the entry trains
+    try:
+        breakdown = train_step_breakdown()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+            "layers": cfg.n_layers, "seq_len": TRAIN["seq_len"],
+            "global_batch": TRAIN["global_batch"], "losses": losses,
+            "grad_norms": [h["grad_norm"] for h in hist], "lrs": [h["lr"] for h in hist],
+            "step_seconds": [h["seconds"] for h in hist],
+            "tokens_per_s": tokens * len(measured) / sum(step_s),
+            "peak_memory_gb": peak_gb, "launches_per_step": want,
+            "main_path_launches": {k: sum(l_[k] for l_ in full_launches) for k in want},
+            "resumed_from": resumed["start"], "resumed_losses": again,
+            "resume_equal": True, "resume_seconds": resume_s,
+            "deterministic_algorithms": "on (launch/train.py)", "breakdown": breakdown}
+
+
+def train_step_breakdown() -> dict:
+    """Where a training step of zamba2-1.2b (TRAIN's shape, bf16) spends
+    its time, by CUDA events around synchronised parts: the forward alone
+    (``train_loss`` under ``no_grad``), forward and backward
+    (``autograd.grad``, which runs each layer's forward again under remat),
+    and the AdamW update; then one whole step under ``torch.profiler``: the
+    card's busy time by kernel family and its idle share."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import (AdamWConfig, TrainConfig, adamw_update, init_opt_state,
+                                   make_train_step)
+
+    cfg = get_config(TRAIN["arch"])
+    model = Model(cfg, device=DEVICE)
+    params = model.init(TRAIN["seed"])
+    leaves = dict(params.named_parameters())
+    batch = SyntheticLMDataset(DataConfig(TRAIN["seq_len"], TRAIN["global_batch"],
+                                          cfg.vocab_size), cfg, device=DEVICE).batch(0)
+    opt = AdamWConfig(lr=TRAIN["lr"])
+    state = init_opt_state(leaves)
+
+    def forward():
+        with torch.no_grad():
+            model.train_loss(params, batch)
+
+    def forward_backward():
+        loss, _ = model.train_loss(params, batch)
+        return torch.autograd.grad(loss, list(leaves.values()))
+
+    grads = {k: g.float() for k, g in zip(leaves, forward_backward())}
+    out = {"forward_ms": cuda_ms(forward, reps=2),
+           "forward_backward_ms": cuda_ms(forward_backward, reps=2),
+           "adamw_ms": cuda_ms(lambda: adamw_update(opt, leaves, grads, state),
+                               reps=2)}
+    del grads
+    step = make_train_step(model.train_loss, TrainConfig(optimizer=opt))
+    step(params, state, None, batch, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, None, batch, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = {"flash_attention_kernel": 0.0, "flash_attention_bwd": 0.0,
+              "mamba_scan_kernel": 0.0, "mamba_scan_bwd": 0.0,
+              "matrix products": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        ms = (getattr(ev, "self_device_time_total", None)
+              or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+        family = next((f for f in groups if f in ev.key), None)
+        if family is None:
+            family = ("matrix products" if any(t in ev.key.lower() for t in (
+                "gemm", "cutlass", "nvjet", "sm90_xmma")) else "other")
+        groups[family] += max(ms, 0.0)
+    busy = sum(groups.values())
+    out.update({"step_wall_ms": wall * 1e3, "device_busy_ms": groups,
+                "device_busy_ms_total": busy, "device_idle_share": 1.0 - busy / 1e3 / wall})
+    del model, params, leaves, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_training(arch: str) -> dict:
+    """Three training steps of ``arch`` at reduced width in f32 on the card
+    (kernels) and on the CPU (plain versions), from the same parameters and
+    batches: per-step loss and gradient norm within TRAIN_REPLAY's
+    tolerance, and on the card each kernel of the path launched as the
+    step's layers call for."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import AdamWConfig, TrainConfig, train_loop
+
+    spec = TRAIN_REPLAY
+    cfg = reduce_config(get_config(arch), dtype="float32")
+    params_cpu = Model(cfg, device="cpu").init(spec["seed"])
+    params_dev = copy.deepcopy(params_cpu).to(DEVICE)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                             total_steps=spec["steps"]))
+    runs = {}
+    for dev, params in ((DEVICE, params_dev), ("cpu", params_cpu)):
+        data = SyntheticLMDataset(DataConfig(spec["seq_len"], spec["batch"], cfg.vocab_size,
+                                             seed=spec["seed"]), cfg, device=dev)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        _, hist = train_loop(Model(cfg, device=dev).train_loss, params,
+                             data.take(spec["steps"]), tcfg)
+        runs[dev] = (hist, all_launches(), time.perf_counter() - t0)
+    (got, launches, dev_s), (want, _, cpu_s) = runs[DEVICE], runs["cpu"]
+    errs = {}
+    for key in ("loss", "grad_norm"):
+        g_, w_ = np.array([h[key] for h in got]), np.array([h[key] for h in want])
+        rel = float(np.max(np.abs(g_ - w_) / np.abs(w_)))
+        if not rel <= spec["rtol"]:
+            raise AssertionError(f"train_replay {arch}: {key} {g_.tolist()} on the card, "
+                                 f"{w_.tolist()} on the CPU")
+        errs[key] = rel
+    steps = spec["steps"]
+    if cfg.family == "hybrid":
+        attn, mamba = cfg.n_layers // cfg.shared_attn_every, cfg.n_layers
+    else:
+        attn, mamba = cfg.n_layers, 0
+    expect = {"flash_attention_kernel": 2 * attn * steps,
+              "flash_attention_bwd_kernel": attn * steps,
+              "mamba_chunk_scan_kernel": 2 * mamba * steps,
+              "mamba_chunk_scan_bwd_kernel": mamba * steps}
+    if {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"train_replay {arch}: launches {launches}, expected {expect}")
+    return {"arch": arch, "family": cfg.family, "seq_len": spec["seq_len"],
+            "losses": [h["loss"] for h in got], "cpu_losses": [h["loss"] for h in want],
+            "grad_norms": [h["grad_norm"] for h in got],
+            "cpu_grad_norms": [h["grad_norm"] for h in want],
+            "max_rel_err": errs, "rtol": spec["rtol"], "launches": expect,
+            "device_seconds": dev_s, "cpu_seconds": cpu_s}
+
+
+def phase_train_replay() -> dict:
+    return {"phase": "train_replay",
+            "models": [replay_training(arch) for arch in TRAIN_REPLAY["archs"]]}
 
 
 # ----------------------------------------------------------------------
@@ -2603,6 +3054,16 @@ def main() -> int:
     families = phase_serve_families()  # resets and reads the counters around each model
     families["seconds"] = time.perf_counter() - t0
     emit(families)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trained = phase_train()  # resets and reads the counters around each step
+    trained["seconds"] = time.perf_counter() - t0
+    emit(trained)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_replay = phase_train_replay()
+    train_replay["seconds"] = time.perf_counter() - t0
+    emit(train_replay)
 
     t0 = time.perf_counter()
     min_cut = phase_min_cut(rng)  # resets and reads the counters around its path
@@ -2643,6 +3104,24 @@ def main() -> int:
                 "shape", "tflops", "bound_share")},
             **{k: timed_entry[k] for k in ("variant", "bound_f32_ms", "launches_serve_families",
                                            "launches_by_model", "mla") if k in timed_entry},
+        })
+    for name, path, replaces in (
+        ("flash_attention_bwd_kernel", "flash_attention_bwd", "src/repro/models/attention.py:177"),
+        ("mamba_chunk_scan_bwd_kernel", "mamba_scan_bwd", "src/repro/models/ssm.py:190"),
+    ):
+        timed_entry = next(e for e in model_checks["entries"] if e["name"] == name and "ms" in e)
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{path}.cu",
+            # no TPU kernel: the JAX package autodiffs the function at this line
+            "replaces": replaces, "tpu_kernel": None,
+            "launches": trained["main_path_launches"][name],
+            "launches_per_step": trained["launches_per_step"][name],
+            **{k: timed_entry[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "shape", "tflops", "bound_share")},
+            **({"bound_f32_ms": timed_entry["bound_f32_ms"]} if "bound_f32_ms" in timed_entry
+               else {}),
         })
     line = next(t for t in min_cut["timing"] if t["n"] == MIN_CUT["line_n"])
     kernels["kernels"].append({

@@ -36,6 +36,9 @@ __all__ = [
     "placement_cache_from_snapshot",
     "tree_to_state_dict",
     "model_params_from_jax",
+    "jax_leaf_ndim",
+    "jax_leaf_groups",
+    "weight_decay_mask",
 ]
 
 ENV_COLUMNS = EnvArrays._fields
@@ -193,3 +196,44 @@ def model_params_from_jax(params_np: Mapping, cfg, device="cpu") -> dict:
         else:
             sd.update(tree_to_state_dict(val, device, key + "."))
     return sd
+
+
+def jax_leaf_ndim(name: str, ndim: int) -> int:
+    """The rank of the JAX package's leaf that the port's parameter ``name``
+    (of rank ``ndim``) holds a slice of: a layer stacked along leading axes
+    there (``_STACKED``: ``blocks.{i}.…`` one axis, ``mamba.{g}.{i}.…`` two)
+    adds its stacked axes; every other parameter, the stacked norm scales
+    of ``_SCALE_STACKS`` included (held whole), has the leaf's rank."""
+    return ndim + _STACKED.get(name.split(".", 1)[0], 0)
+
+
+def _named(params):
+    return params.named_parameters() if isinstance(params, torch.nn.Module) else params.items()
+
+
+def jax_leaf_groups(params) -> dict:
+    """``{name: the JAX leaf's path}`` (its keys joined by dots) for a
+    model's parameters (an ``nn.Module`` or a ``{name: tensor}`` dict): the
+    per-layer tensors of a stacked leaf share one path
+    (``mamba.0.1.in_proj.w`` -> ``mamba.in_proj.w``), a stacked norm scale
+    held whole is its leaf (``shared_ln`` -> ``shared_ln.scale``), and every
+    other parameter keeps its name.  Gradient compression takes a JAX leaf
+    as its unit (``runtime.compression``)."""
+    out = {}
+    for k, _ in _named(params):
+        head, *rest = k.split(".")
+        if head in _SCALE_STACKS:
+            out[k] = f"{head}.scale"
+        else:
+            out[k] = ".".join([head, *rest[_STACKED.get(head, 0):]])
+    return out
+
+
+def weight_decay_mask(params) -> dict:
+    """``{name: decays}`` for a model's parameters (an ``nn.Module`` or a
+    ``{name: tensor}`` dict): the JAX package's AdamW decays every leaf of
+    two or more dimensions, and its leaves are stacked over layers, so a
+    per-layer norm scale, bias, ``a_log``, ``d_skip`` or ``dt_bias`` of a
+    stacked layer decays there though it is 1-D here.  The answer comes
+    from the JAX leaf's rank (:func:`jax_leaf_ndim`)."""
+    return {k: jax_leaf_ndim(k, p.ndim) >= 2 for k, p in _named(params)}

@@ -52,7 +52,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNEL_SOURCES = ("mcop_sw", "mcop_fused", "mcop_phase", "flash_attention", "mamba_scan")
+KERNEL_SOURCES = ("mcop_sw", "mcop_fused", "mcop_phase", "flash_attention", "mamba_scan",
+                  "flash_attention_bwd", "mamba_scan_bwd")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

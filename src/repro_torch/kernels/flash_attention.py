@@ -19,6 +19,17 @@ The kernel has two variants behind one C entry point, chosen by
 (``wgmma``, with P split into two bf16 parts, and ``cp.async`` staging),
 float32 and the narrow bfloat16 heads on the CUDA cores.  ``LAUNCHES`` counts kernel launches, one per call whichever
 the variant; ``VARIANT_LAUNCHES`` counts them by variant.
+
+:func:`flash_attention_bwd_kernel` is the backward (``csrc/flash_attention_bwd.cu``,
+no TPU counterpart: the JAX package autodiffs its jnp attention): ``dq``,
+``dk``, ``dv`` from the forward's inputs, its output and the output's
+gradient, in f32 sums on the CUDA cores, deterministic (no atomics).  A CPU
+tensor takes autograd through the plain version
+(:func:`~repro_torch.kernels.ref.flash_attention_bwd_plain`).
+:class:`FlashAttentionFn` joins the two: its forward is the kernel above,
+its backward this one; ``kernels.ops.flash_attention`` applies it to CUDA
+tensors.  ``BWD_LAUNCHES`` counts its calls (two launches each, counted
+once).
 """
 
 from __future__ import annotations
@@ -30,11 +41,17 @@ import torch
 
 from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.mcop_phase import _require
-from repro_torch.kernels.ref import attention_output_like, flash_attention_plain
+from repro_torch.kernels.ref import (
+    attention_output_like, flash_attention_bwd_plain, flash_attention_plain,
+)
 
 __all__ = [
+    "FlashAttentionFn",
     "flash_attention_kernel",
+    "flash_attention_bwd_kernel",
+    "flash_attention_bwd_plain",
     "flash_attention_plain",
+    "BWD_LAUNCHES",
     "FLASH_HEAD_DIMS",
     "LAUNCHES",
     "TENSOR_CORE_HEAD_DIMS",
@@ -55,10 +72,13 @@ _VARIANT_CODES = {"cuda_cores": 0, "tensor_cores": 1}
 # where it launches its kernel, and nowhere else
 LAUNCHES = {"flash_attention_kernel": 0}
 VARIANT_LAUNCHES = {variant: 0 for variant in _VARIANT_CODES}
+# calls of the backward kernel, counted the same way
+BWD_LAUNCHES = {"flash_attention_bwd_kernel": 0}
 
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention_kernel"] = 0
+    BWD_LAUNCHES["flash_attention_bwd_kernel"] = 0
     for variant in VARIANT_LAUNCHES:
         VARIANT_LAUNCHES[variant] = 0
 
@@ -161,3 +181,105 @@ def flash_attention_kernel(
     LAUNCHES["flash_attention_kernel"] += 1
     VARIANT_LAUNCHES[variant] += 1
     return out
+
+
+def _bwd_library():
+    from repro_torch.kernels import build
+
+    lib = build.load("flash_attention_bwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.repro_torch_flash_attention_bwd.argtypes = (
+        [P] * 10 + [I] * 9 + [ctypes.c_float, I, ctypes.POINTER(ctypes.c_longlong), P]
+    )
+    return lib  # restype: ctypes' default c_int, the CUDA error code
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with a contiguous last dim (a copy only where it has none)."""
+    return t if t.shape[-1] <= 1 or t.stride(-1) == 1 else t.contiguous()
+
+
+def flash_attention_bwd_kernel(
+    q: torch.Tensor,     # (B, H, Sq, hd)
+    k: torch.Tensor,     # (B, Hkv, Sk, hd)
+    v: torch.Tensor,     # (B, Hkv, Sk, hd_v)
+    out: torch.Tensor,   # (B, H, Sq, hd_v): the forward's output
+    dout: torch.Tensor,  # (B, H, Sq, hd_v): its gradient
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_kernel`'s function on the
+    inputs' device, each in q's dtype and its input's layout where that is
+    dense.  ``dk``/``dv`` sum over the query heads of each KV head.  Same
+    arguments and limits as the forward; ``out`` and ``dout`` are taken in
+    any layout (copied to contiguous rows where their last dim is not)."""
+    b, h, sq, hd = (int(d) for d in q.shape)
+    hkv, sk = int(k.shape[1]), int(k.shape[2])
+    hd_v = int(v.shape[3])
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"query heads {h} are not a multiple of KV heads {hkv}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    dev = q.device
+    out, dout = _rows(out.to(q.dtype)), _rows(dout.to(q.dtype))
+    _require(q, "q", (b, h, sq, hd), q.dtype, dev, layout="rows")
+    _require(k, "k", (b, hkv, sk, hd), q.dtype, dev, layout="rows")
+    _require(v, "v", (b, hkv, sk, hd_v), q.dtype, dev, layout="rows")
+    _require(out, "out", (b, h, sq, hd_v), q.dtype, dev, layout="rows")
+    _require(dout, "dout", (b, h, sq, hd_v), q.dtype, dev, layout="rows")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    if dev.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal, window=window,
+                                         scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"no flash-attention backward kernel for device {dev}")
+    if (hd, hd_v) not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_kernel takes (hd, hd_v) in "
+                         f"{FLASH_HEAD_DIMS}, got {(hd, hd_v)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b * h == 0:
+        return dq, dk, dv
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    tensors = (q, k, v, out, dout, dq, dk, dv)
+    strides = [st for t in tensors for st in t.stride()[:3]]
+    lib = _bwd_library()
+    with torch.cuda.device(dev):
+        err = lib.repro_torch_flash_attention_bwd(
+            *(t.data_ptr() for t in tensors), lse.data_ptr(), delta.data_ptr(),
+            b, h, hkv, sq, sk, hd, hd_v, int(causal),
+            -1 if window is None else min(int(window), 2**30),
+            float(scale), _DTYPE_CODES[q.dtype],
+            (ctypes.c_longlong * 24)(*strides),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise KernelError(
+            f"flash_attention_bwd kernel launch refused (CUDA error {err}; "
+            f"q={tuple(q.shape)}, k={tuple(k.shape)}, {q.dtype})"
+        )
+    BWD_LAUNCHES["flash_attention_bwd_kernel"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention whose forward is :func:`flash_attention_kernel` and whose
+    backward is :func:`flash_attention_bwd_kernel`, head-major views in,
+    as those take them.  Saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int | None, scale: float | None):
+        out = flash_attention_kernel(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = {"causal": causal, "window": window, "scale": scale}
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None

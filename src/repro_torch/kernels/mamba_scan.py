@@ -13,6 +13,18 @@ their strides; the last dim of ``x``, ``Bm`` and ``Cm`` contiguous), so the
 model's step-major ``(B, S, H, P)`` tensors go in without head-major copies.
 A CUDA tensor launches the kernel or raises ``kernels.build.KernelError``;
 a CPU tensor runs :func:`~repro_torch.kernels.ref.mamba_chunk_scan_plain`.
+
+:func:`mamba_chunk_scan_bwd_kernel` is the backward (``csrc/mamba_scan_bwd.cu``,
+no TPU counterpart: the JAX package autodiffs its ``lax.scan`` over
+chunks): the gradients of ``x``, ``dt``, ``ld``, ``Bm``, ``Cm`` and ``h0``
+from the inputs, the forward's states entering each chunk and the output
+gradients, in f32 on the CUDA cores, deterministic (no atomics); six
+launches a call, counted once in ``BWD_LAUNCHES``.
+A CPU tensor takes autograd through the plain version
+(:func:`~repro_torch.kernels.ref.mamba_chunk_scan_bwd_plain`).
+:class:`MambaScanFn` joins the two (the forward keeps its states scratch
+for the backward); ``kernels.ops.mamba_chunk_scan`` applies it to CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -23,11 +35,15 @@ import torch
 
 from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.mcop_phase import _require
-from repro_torch.kernels.ref import mamba_chunk_scan_plain
+from repro_torch.kernels.ref import mamba_chunk_scan_bwd_plain, mamba_chunk_scan_plain
 
 __all__ = [
+    "MambaScanFn",
     "mamba_chunk_scan_kernel",
+    "mamba_chunk_scan_bwd_kernel",
+    "mamba_chunk_scan_bwd_plain",
     "mamba_chunk_scan_plain",
+    "BWD_LAUNCHES",
     "MAMBA_MAX_CHUNK",
     "MAMBA_MAX_WIDTH",
     "LAUNCHES",
@@ -43,10 +59,13 @@ MAMBA_MAX_WIDTH = 64
 # calls that launched the kernel since the last reset_launches(); the wrapper
 # adds one exactly where it launches the four passes, and nowhere else
 LAUNCHES = {"mamba_chunk_scan_kernel": 0}
+# calls of the backward kernel (six launches each), counted the same way
+BWD_LAUNCHES = {"mamba_chunk_scan_bwd_kernel": 0}
 
 
 def reset_launches() -> None:
     LAUNCHES["mamba_chunk_scan_kernel"] = 0
+    BWD_LAUNCHES["mamba_chunk_scan_bwd_kernel"] = 0
 
 
 def _library():
@@ -72,6 +91,14 @@ def mamba_chunk_scan_kernel(
     ``bm`` and ``cm`` have a contiguous last dim, ``dt`` and ``ld`` any
     strides.  ``y`` has x's strides where x is dense.  On a CUDA tensor
     ``Q <= MAMBA_MAX_CHUNK`` and ``P, N <= MAMBA_MAX_WIDTH``."""
+    y, h_out, _ = _scan(x, dt, ld, bm, cm, h0)
+    return y, h_out
+
+
+def _scan(x, dt, ld, bm, cm, h0):
+    """:func:`mamba_chunk_scan_kernel`, also returning the state entering
+    each chunk ``(B, H, NC, P, N)`` (the kernel's scratch; ``None`` on the
+    CPU)."""
     if x.ndim != 5 or bm.ndim != 4:
         raise ValueError(f"expected x (B,H,NC,Q,P) and bm (B,NC,Q,N), got "
                          f"{tuple(x.shape)}, {tuple(bm.shape)}")
@@ -86,7 +113,7 @@ def mamba_chunk_scan_kernel(
     _require(cm, "cm", (b, nc, q, n), f32, dev, layout="rows")
     _require(h0, "h0", (b, h, p, n), f32, dev)
     if dev.type == "cpu":
-        return mamba_chunk_scan_plain(x, dt, ld, bm, cm, h0)
+        return (*mamba_chunk_scan_plain(x, dt, ld, bm, cm, h0), None)
     if dev.type != "cuda":
         raise ValueError(f"no Mamba scan kernel for device {dev}")
     if not (1 <= q <= MAMBA_MAX_CHUNK and p <= MAMBA_MAX_WIDTH and n <= MAMBA_MAX_WIDTH):
@@ -97,7 +124,7 @@ def mamba_chunk_scan_kernel(
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
     if b * h * nc == 0:
-        return y, h_out
+        return y, h_out, torch.empty((b, h, nc, p, n), dtype=f32, device=dev)
     # scratch of the passes: C·Bᵀ per (batch, chunk) in 64-step tiles, the
     # per-chunk states (S_c, then the state entering chunk c), cum_end
     qg = -(-q // 64) * 64
@@ -125,4 +152,109 @@ def mamba_chunk_scan_kernel(
             f"x={tuple(x.shape)}, N={n})"
         )
     LAUNCHES["mamba_chunk_scan_kernel"] += 1
-    return y, h_out
+    return y, h_out, states
+
+
+def _bwd_library():
+    from repro_torch.kernels import build
+
+    lib = build.load("mamba_scan_bwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.repro_torch_mamba_scan_bwd.argtypes = (
+        [P] * 21 + [I] * 6 + [ctypes.POINTER(ctypes.c_longlong), P])
+    return lib  # restype: ctypes' default c_int, the CUDA error code
+
+
+def mamba_chunk_scan_bwd_kernel(
+    x: torch.Tensor,       # (B, H, NC, Q, P) f32
+    dt: torch.Tensor,      # (B, H, NC, Q)    f32
+    ld: torch.Tensor,      # (B, H, NC, Q)    f32
+    bm: torch.Tensor,      # (B, NC, Q, N)    f32
+    cm: torch.Tensor,      # (B, NC, Q, N)    f32
+    states: torch.Tensor,  # (B, H, NC, P, N) f32: the state entering each chunk
+    dy: torch.Tensor,      # (B, H, NC, Q, P) f32: the gradient of y
+    dh: torch.Tensor | None = None,  # (B, H, P, N): of the final state (None: 0)
+) -> tuple[torch.Tensor, ...]:
+    """``(dx, ddt, dld, dbm, dcm, dh0)`` of :func:`mamba_chunk_scan_kernel`'s
+    function on the inputs' device, contiguous float32.  ``states[:, :, 0]``
+    is ``h0``; the forward's scratch gives the rest (on the CPU only
+    ``h0`` is read).  Same layouts and limits as the forward; ``dy`` in
+    any layout (copied to contiguous rows where its last dim is not)."""
+    b, h, nc, q, p = (int(d) for d in x.shape)
+    n = int(bm.shape[-1])
+    dev = x.device
+    f32 = torch.float32
+    dy = dy if dy.shape[-1] <= 1 or dy.stride(-1) == 1 else dy.contiguous()
+    dh = torch.zeros((b, h, p, n), dtype=f32, device=dev) if dh is None else dh.contiguous()
+    _require(x, "x", (b, h, nc, q, p), f32, dev, layout="rows")
+    _require(dt, "dt", (b, h, nc, q), f32, dev, layout="any")
+    _require(ld, "ld", (b, h, nc, q), f32, dev, layout="any")
+    _require(bm, "bm", (b, nc, q, n), f32, dev, layout="rows")
+    _require(cm, "cm", (b, nc, q, n), f32, dev, layout="rows")
+    _require(states, "states", (b, h, nc, p, n), f32, dev, layout="any")
+    _require(dy, "dy", (b, h, nc, q, p), f32, dev, layout="rows")
+    _require(dh, "dh", (b, h, p, n), f32, dev)
+    if dev.type == "cpu":
+        return mamba_chunk_scan_bwd_plain(x, dt, ld, bm, cm, states[:, :, 0], dy, dh)
+    if dev.type != "cuda":
+        raise ValueError(f"no Mamba scan backward kernel for device {dev}")
+    if not (1 <= q <= MAMBA_MAX_CHUNK and p <= MAMBA_MAX_WIDTH and n <= MAMBA_MAX_WIDTH):
+        raise ValueError(
+            f"mamba_chunk_scan_bwd_kernel takes Q <= {MAMBA_MAX_CHUNK} and P, N <= "
+            f"{MAMBA_MAX_WIDTH}, got Q={q}, P={p}, N={n}"
+        )
+    states = states.contiguous()
+    outs = (torch.empty((b, h, nc, q, p), dtype=f32, device=dev),
+            torch.empty((b, h, nc, q), dtype=f32, device=dev),
+            torch.empty((b, h, nc, q), dtype=f32, device=dev),
+            torch.empty((b, nc, q, n), dtype=f32, device=dev),
+            torch.empty((b, nc, q, n), dtype=f32, device=dev),
+            torch.empty((b, h, p, n), dtype=f32, device=dev))
+    if b * h == 0:
+        return outs
+    # scratch: the state gradient leaving each chunk, cum_end, the two parts
+    # of d cum, each s tile's sum of T, and every head's part of dBm and dCm
+    n_tiles = -(-q // 64)
+    scratch = (torch.empty((b, h, nc, p, n), dtype=f32, device=dev),
+               torch.empty((b, h, nc), dtype=f32, device=dev),
+               torch.empty((b, h, nc, q), dtype=f32, device=dev),
+               torch.empty((b, h, nc, q), dtype=f32, device=dev),
+               torch.empty((b, h, nc, n_tiles), dtype=f32, device=dev),
+               torch.empty((b, h, nc, q, n), dtype=f32, device=dev),
+               torch.empty((b, h, nc, q, n), dtype=f32, device=dev))
+    strides = (ctypes.c_longlong * 22)(
+        *x.stride()[:4], *dt.stride(), *ld.stride(), *bm.stride()[:3],
+        *cm.stride()[:3], *dy.stride()[:4])
+    lib = _bwd_library()
+    with torch.cuda.device(dev):
+        err = lib.repro_torch_mamba_scan_bwd(
+            *(t.data_ptr() for t in (x, dt, ld, bm, cm, dy, states, dh, *outs, *scratch)),
+            b, h, nc, q, p, n, strides, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise KernelError(
+            f"mamba_scan_bwd kernel launch refused (CUDA error {err}; "
+            f"x={tuple(x.shape)}, N={n})"
+        )
+    BWD_LAUNCHES["mamba_chunk_scan_bwd_kernel"] += 1
+    return outs
+
+
+class MambaScanFn(torch.autograd.Function):
+    """The chunked scan whose forward is :func:`mamba_chunk_scan_kernel` and
+    whose backward is :func:`mamba_chunk_scan_bwd_kernel`.  Saves the inputs
+    and the forward's states entering each chunk ((B, H, NC, P, N) f32: 67 MB
+    a layer at zamba2-1.2b's 2 x 8192 tokens), so nothing is recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, dt, ld, bm, cm, h0):
+        y, h_out, states = _scan(x, dt, ld, bm, cm, h0)
+        ctx.save_for_backward(x, dt, ld, bm, cm, states)
+        return y, h_out
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, ld, bm, cm, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return mamba_chunk_scan_bwd_kernel(x, dt, ld, bm, cm, states, dy, dh)

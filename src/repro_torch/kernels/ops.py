@@ -4,7 +4,10 @@ The model code keeps its ``(B, S, H, hd)`` layout; the first two functions
 hand the kernels head-major *views* of it (the kernels take strides), so
 the only copy made there is the scan's cast to float32.  Each runs on its
 inputs' device: the kernel on a CUDA tensor, its plain version on a CPU
-tensor (see the kernel modules).
+tensor (see the kernel modules).  Both are differentiable: on a CUDA tensor
+through an ``autograd.Function`` whose backward is the kernel's backward
+kernel (``FlashAttentionFn``, ``MambaScanFn``), on a CPU tensor through
+autograd of the plain version.
 
 ``flash_attention``   — ``models.attention.chunked_attention`` is this.
 ``mamba_chunk_scan``  — the scan core of ``models.ssm.mamba2_forward``.
@@ -17,8 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_kernel
-from repro_torch.kernels.mamba_scan import mamba_chunk_scan_kernel
+from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_kernel
+from repro_torch.kernels.mamba_scan import MambaScanFn, mamba_chunk_scan_kernel
 from repro_torch.kernels.mcop_phase import (
     PHASE_MAX_N, LoopState, mcop_phase_step, require_device,
 )
@@ -36,10 +39,11 @@ def flash_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Returns (B, Sq, H, hd_v) in q's dtype (contiguous when q is)."""
-    out = flash_attention_kernel(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, scale=scale,
-    )
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q.device.type == "cuda":
+        out = FlashAttentionFn.apply(qh, kh, vh, causal, window, scale)
+    else:
+        out = flash_attention_kernel(qh, kh, vh, causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
 
 
@@ -62,7 +66,7 @@ def mamba_chunk_scan(
         raise ValueError(f"sequence length {s} is not a multiple of the chunk {q}")
     nc = s // q
     f32 = torch.float32
-    y, h_final = mamba_chunk_scan_kernel(
+    args = (
         x.to(f32).reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4),
         dt.to(f32).reshape(b, nc, q, h).permute(0, 3, 1, 2),
         ld.to(f32).reshape(b, nc, q, h).permute(0, 3, 1, 2),
@@ -70,6 +74,10 @@ def mamba_chunk_scan(
         cm.to(f32).reshape(b, nc, q, n),
         h0.to(f32).contiguous(),
     )
+    if x.device.type == "cuda":
+        y, h_final = MambaScanFn.apply(*args)
+    else:
+        y, h_final = mamba_chunk_scan_kernel(*args)
     return y.permute(0, 2, 3, 1, 4).reshape(b, s, h, p), h_final
 
 

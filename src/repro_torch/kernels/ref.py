@@ -9,10 +9,16 @@ on, the same function as its kernel (``csrc/flash_attention.cu``,
   exactly as the kernel masks, fully-masked rows zeroed.  Counterpart of
   the JAX package's ``ref.flash_reference`` (which materialises all rows
   at once and does not zero fully-masked rows; no test shape has one).
+* :func:`flash_attention_bwd_plain` — its backward: ``torch.autograd``
+  through :func:`flash_attention_plain` (the plain version of
+  ``csrc/flash_attention_bwd.cu``).
 * :func:`mamba_chunk_scan_plain` — the Mamba2 SSD chunked scan, batched
   over (batch, head), walking the chunks in order.  Same function as the
   JAX package's token recurrence ``ref.mamba_chunk_scan_reference``,
   computed in the chunked form the kernel uses.
+* :func:`mamba_chunk_scan_bwd_plain` — its backward, ``torch.autograd``
+  through :func:`mamba_chunk_scan_plain` (the plain version of
+  ``csrc/mamba_scan_bwd.cu``).
 * :func:`mcop_phase_plain` — one MinCutPhase (the paper's Algorithm 3),
   the plain version of ``csrc/mcop_phase.cu``'s phase kernel.  Transcribes
   the JAX package's ``ref.mcop_phase_reference`` and the Pallas body it
@@ -34,8 +40,9 @@ import torch
 from repro_torch.kernels.mcop_phase import NEG_INF as MCOP_NEG_INF
 from repro_torch.kernels.mcop_phase import triangle_index, unpack_triangle
 
-__all__ = ["NEG_INF", "attention_output_like", "flash_attention_plain",
-           "mamba_chunk_scan_plain", "mcop_phase_plain", "mcop_phase_step_plain"]
+__all__ = ["NEG_INF", "attention_output_like", "flash_attention_bwd_plain",
+           "flash_attention_plain", "mamba_chunk_scan_bwd_plain", "mamba_chunk_scan_plain",
+           "mcop_phase_plain", "mcop_phase_step_plain"]
 
 NEG_INF = -2.0**30
 _PLAIN_BLOCK_Q = 1024  # query rows scored at a time: bounds memory, not the result
@@ -96,6 +103,43 @@ def flash_attention_plain(
         o = torch.matmul(p.view(b, hkv, rep * bq, sk), vf).view(b, h, bq, hd_v)
         out[:, :, q0:q1] = (o / l).to(q.dtype)
     return out
+
+
+def _grads(fn, inputs: tuple, outputs_grad: tuple) -> tuple:
+    """The gradients of ``fn(*inputs)`` with respect to every input, for the
+    given output gradients (``None`` for an output that has none), by
+    ``torch.autograd`` on detached copies of the inputs."""
+    with torch.enable_grad():
+        leaves = tuple(t.detach().requires_grad_() for t in inputs)
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, outputs_grad) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs],
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads))
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,     # (B, H, Sq, hd)
+    k: torch.Tensor,     # (B, Hkv, Sk, hd)
+    v: torch.Tensor,     # (B, Hkv, Sk, hd_v)
+    dout: torch.Tensor,  # (B, H, Sq, hd_v)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_plain` for the output
+    gradient ``dout``: autograd through the plain version."""
+    return _grads(lambda q_, k_, v_: flash_attention_plain(
+        q_, k_, v_, causal=causal, window=window, scale=scale), (q, k, v), (dout,))
+
+
+def mamba_chunk_scan_bwd_plain(x, dt, ld, bm, cm, h0, dy, dh=None) -> tuple:
+    """``(dx, ddt, dld, dbm, dcm, dh0)`` of :func:`mamba_chunk_scan_plain`
+    for the gradients ``dy`` of ``y`` and ``dh`` of the final state (``None``:
+    zero): autograd through the plain version."""
+    return _grads(mamba_chunk_scan_plain, (x, dt, ld, bm, cm, h0), (dy, dh))
 
 
 def mamba_chunk_scan_plain(

@@ -10,8 +10,9 @@ like.  A dense weight is stored ``(d_in, d_out)`` and applied as
 Initialisers draw from an explicit ``torch.Generator`` on the device the
 parameters are made on, with the same distributions as the JAX package
 (not the same numbers: the two generators differ).  On the ``meta``
-device they allocate nothing and draw nothing.  Parameters carry no
-gradient: this package serves, it does not train.
+device they allocate nothing and draw nothing.  Parameters are trainable
+(``requires_grad``); serving runs under ``torch.no_grad`` (``Model.prefill``
+and ``Model.decode_step``), so it builds no graph.
 
 Compute dtype follows the config (bf16 by default); normalisation
 statistics and softmax accumulate in float32.
@@ -22,6 +23,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 __all__ = [
@@ -38,6 +40,8 @@ __all__ = [
     "rmsnorm",
     "apply_rope",
     "apply_mrope",
+    "softmax_cross_entropy",
+    "softmax_cross_entropy_chunked",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -48,8 +52,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A parameter without gradient (nothing here trains)."""
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable parameter (``Model.train_loss`` differentiates it)."""
+    return nn.Parameter(t, requires_grad=t.is_floating_point())
 
 
 def normal(gen, shape, *, std: float = 1.0, dtype=torch.float32, device) -> torch.Tensor:
@@ -171,3 +175,68 @@ def apply_mrope(
         _rope_angles(positions[..., 2], hd, theta)[..., s0 + s1:],
     ], dim=-1)                                           # (B, S, hd/2)
     return _rotate(x, torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :])
+
+
+# ----------------------------------------------------------------------
+# Losses
+# ----------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                          ignore_id: int = -100) -> torch.Tensor:
+    """Mean token NLL in float32 over the labels that are not ``ignore_id``.
+    logits: (..., V); labels: (...)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = labels != ignore_id
+    return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1)
+
+
+def _ce_chunk(h, wc, col0: int, vocab: int, labels, m, l, gold):
+    """One vocab chunk of the online log-sum-exp: the running max ``m``,
+    sum ``l`` and gold logit ``gold`` after the columns ``col0 ..``."""
+    chunk = wc.shape[1]
+    logits = (h @ wc).to(torch.float32)                                # (B, S, c)
+    cols = col0 + torch.arange(chunk, device=h.device)
+    logits = torch.where(cols < vocab, logits, -1e30)
+    m_new = torch.maximum(m, logits.amax(-1))
+    l = l * torch.exp(m - m_new) + torch.exp(logits - m_new[..., None]).sum(-1)
+    in_chunk = (labels >= col0) & (labels < col0 + chunk)
+    idx = (labels - col0).clamp(0, chunk - 1)
+    gold_here = torch.gather(logits, -1, idx[..., None])[..., 0]
+    return m_new, l, torch.where(in_chunk, gold_here, gold)
+
+
+def softmax_cross_entropy_chunked(
+    h: torch.Tensor,        # (B, S, d) final hidden states (already normed)
+    head: Dense,            # lm_head, w (d, V)
+    labels: torch.Tensor,   # (B, S)
+    *,
+    chunk: int = 8192,
+    ignore_id: int = -100,
+) -> torch.Tensor:
+    """Cross-entropy without materialising the (B, S, V) logits: vocab
+    chunks of ``chunk`` columns (the last zero-padded, its padding masked
+    to -1e30) with an online log-sum-exp, as the JAX package's scan.  Each
+    chunk runs under ``torch.utils.checkpoint``: autograd keeps only its
+    inputs (the (B, S) carries) and recomputes its (B, S, chunk) logits in
+    the backward, as ``jax.checkpoint(body)`` does, so live memory is one
+    chunk of logits either way."""
+    b, s, _ = h.shape
+    w = head.w
+    vocab = w.shape[1]
+    pad = (-vocab) % chunk
+    wp = torch.nn.functional.pad(w, (0, pad))
+    labels_c = labels.clamp_min(0)
+    f32 = torch.float32
+    m = torch.full((b, s), -1e30, dtype=f32, device=h.device)
+    l = torch.zeros((b, s), dtype=f32, device=h.device)
+    gold = torch.zeros((b, s), dtype=f32, device=h.device)
+    for col0 in range(0, vocab + pad, chunk):
+        m, l, gold = torch.utils.checkpoint.checkpoint(
+            _ce_chunk, h, wp[:, col0:col0 + chunk], col0, vocab, labels_c, m, l, gold,
+            use_reentrant=False)
+    nll = m + torch.log(l.clamp_min(1e-30)) - gold
+    mask = labels != ignore_id
+    return (nll * mask).sum() / mask.sum().clamp_min(1)

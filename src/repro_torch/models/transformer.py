@@ -6,6 +6,9 @@
 * ``init_cache(batch, max_len)``    — the decode cache, a dict of tensors
 * ``prefill(params, batch, cache)`` — run the prompt, fill the cache
 * ``decode_step(params, tokens, cache)`` — one token with the cache
+* ``train_loss(params, batch)``      — the training loss and its parts,
+  differentiable with respect to the parameters (``Model.remat``,
+  ``Model.vocab_chunk`` as in the JAX package)
 
 The JAX package scans over stacked layer parameters; here the layers are a
 Python loop over ``nn.Module``\\ s, and a cache is a dict of preallocated
@@ -31,6 +34,15 @@ in place.  The families:
 
 Frontends are stubs, as in the JAX package: precomputed patch or frame
 embeddings arrive in the batch.
+
+Training runs the cache-free paths under autograd.  With ``remat`` each
+layer body (the JAX package's ``jax.checkpoint`` unit: a decoder, encoder
+or cross block, a zamba2 group of Mamba2 layers and the shared block, an
+xLSTM group) runs under ``torch.utils.checkpoint(use_reentrant=False)``:
+only its input is kept, and its forward runs again in the backward (the
+kernels of a body launch twice a step).  The JAX package saves the matrix
+products' outputs too (``dots_with_no_batch_dims_saveable``); the numbers
+are the same either way.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -100,6 +113,14 @@ def _default_positions(cfg: ModelConfig, b: int, s: int, batch: dict, *, device)
 
 def _lm_logits(cfg: ModelConfig, params: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return linear(params.lm_head, rmsnorm(params.final_norm, x, eps=cfg.norm_eps))
+
+
+def _body(fn, remat: bool):
+    """``fn`` as a layer body: under ``torch.utils.checkpoint`` with
+    ``remat`` (its activations recomputed in the backward), else as it is."""
+    if not remat:
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ======================================================================
@@ -181,7 +202,8 @@ def _decoder_block(cfg: ModelConfig, p: DecoderBlock, x: torch.Tensor, *,
 
 
 def _run_decoder_stack(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor, *,
-                       positions: torch.Tensor, cache: dict | None, use_chunked: bool):
+                       positions: torch.Tensor, cache: dict | None, use_chunked: bool,
+                       remat: bool = False):
     """x through the ``dense0`` blocks, then the main blocks.  Returns (x,
     cache with the new length or None, summed aux loss)."""
     aux = torch.zeros((), device=x.device)
@@ -190,8 +212,12 @@ def _run_decoder_stack(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor, *,
     for prefix, blocks in (("dense0/", params.dense0), ("main/", params.blocks)):
         for i, p in enumerate(blocks or ()):
             c = None if cache is None else {k: cache[prefix + k][i] for k in keys}
-            x, a = _decoder_block(cfg, p, x, positions=positions, cache=c, length=length,
-                                  use_chunked=use_chunked)
+
+            def block(x_, p=p, c=c):
+                return _decoder_block(cfg, p, x_, positions=positions, cache=c,
+                                      length=length, use_chunked=use_chunked)
+
+            x, a = _body(block, remat and cache is None)(x)
             aux = aux + a
     if cache is None:
         return x, None, aux
@@ -250,23 +276,29 @@ def _init_encdec(gen, cfg: ModelConfig, *, device) -> EncDecLM:
     return EncDecLM(embed, enc, norm(), dec, norm(), lm_head)
 
 
-def _run_encoder(cfg: ModelConfig, params: EncDecLM, src: torch.Tensor) -> torch.Tensor:
+def _run_encoder(cfg: ModelConfig, params: EncDecLM, src: torch.Tensor, *,
+                 remat: bool = False) -> torch.Tensor:
     """The encoder over frame embeddings (B, S, d), cast to the model's dtype."""
     src = src.to(common.dtype_of(cfg.dtype))
     b, s, d = src.shape
     x = src + _sinusoidal_positions(s, d, device=src.device).to(src.dtype)[None]
     pos = torch.arange(s, device=src.device)[None, :].expand(b, s)
     for p in params.enc_blocks:
-        h = rmsnorm(p.ln1, x, eps=cfg.norm_eps)
-        a, _ = attn_lib.attention_forward(cfg, p.attn, h, positions=pos, mask_kind="full")
-        x = x + a
-        h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
-        x = x + ffn.swiglu_forward(p.ffn, h)
+
+        def block(x, p=p):
+            h = rmsnorm(p.ln1, x, eps=cfg.norm_eps)
+            a, _ = attn_lib.attention_forward(cfg, p.attn, h, positions=pos, mask_kind="full")
+            x = x + a
+            h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
+            return x + ffn.swiglu_forward(p.ffn, h)
+
+        x = _body(block, remat)(x)
     return rmsnorm(params.enc_norm, x, eps=cfg.norm_eps)
 
 
 def _run_decoder_encdec(cfg: ModelConfig, params: EncDecLM, x: torch.Tensor,
-                        memory: torch.Tensor | None, cache: dict | None):
+                        memory: torch.Tensor | None, cache: dict | None, *,
+                        remat: bool = False):
     """The decoder: against ``memory`` without a cache, against the cache's
     projected cross k/v with one.  Decoder positions are ``0 .. S-1`` at
     every call, as in the JAX package; the sinusoidal offset follows the
@@ -277,22 +309,26 @@ def _run_decoder_encdec(cfg: ModelConfig, params: EncDecLM, x: torch.Tensor,
     x = x + _sinusoidal_positions(s, d, offset=length, device=dev).to(x.dtype)[None]
     pos = torch.arange(s, device=dev)[None, :].expand(b, s)
     for i, p in enumerate(params.dec_blocks):
-        h = rmsnorm(p.ln1, x, eps=cfg.norm_eps)
-        self_c = (None if cache is None
-                  else attn_lib.KVCache(cache["self_k"][i], cache["self_v"][i], length))
-        a, _ = attn_lib.attention_forward(cfg, p.self_attn, h, positions=pos, cache=self_c)
-        x = x + a
-        h = rmsnorm(p.ln_x, x, eps=cfg.norm_eps)
-        if cache is not None:
-            cross_c = attn_lib.KVCache(cache["cross_k"][i], cache["cross_v"][i], 0)
-            a, _ = attn_lib.attention_forward(cfg, p.cross_attn, h, positions=pos,
-                                              cache=cross_c, kv_source=h)
-        else:
-            a, _ = attn_lib.attention_forward(cfg, p.cross_attn, h, positions=pos,
-                                              kv_source=memory, mask_kind="full")
-        x = x + a
-        h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
-        x = x + ffn.swiglu_forward(p.ffn, h)
+
+        def block(x, memory, i=i, p=p):
+            h = rmsnorm(p.ln1, x, eps=cfg.norm_eps)
+            self_c = (None if cache is None
+                      else attn_lib.KVCache(cache["self_k"][i], cache["self_v"][i], length))
+            a, _ = attn_lib.attention_forward(cfg, p.self_attn, h, positions=pos, cache=self_c)
+            x = x + a
+            h = rmsnorm(p.ln_x, x, eps=cfg.norm_eps)
+            if cache is not None:
+                cross_c = attn_lib.KVCache(cache["cross_k"][i], cache["cross_v"][i], 0)
+                a, _ = attn_lib.attention_forward(cfg, p.cross_attn, h, positions=pos,
+                                                  cache=cross_c, kv_source=h)
+            else:
+                a, _ = attn_lib.attention_forward(cfg, p.cross_attn, h, positions=pos,
+                                                  kv_source=memory, mask_kind="full")
+            x = x + a
+            h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
+            return x + ffn.swiglu_forward(p.ffn, h)
+
+        x = _body(block, remat and cache is None)(x, memory)
     if cache is None:
         return x, None
     cache["length"] = length + s
@@ -347,48 +383,59 @@ def _run_zamba(
     cache: dict | None,
     *,
     decode: bool,
+    remat: bool = False,
 ):
     """The layer stack.  With a cache, its tensors are updated in place and
     the returned dict holds them with the new length."""
     b, s, _ = x.shape
-    dev = x.device
     length = cache["length"] if cache is not None else 0
-    positions = (length + torch.arange(s, device=dev))[None, :].expand(b, s)
+    positions = (length + torch.arange(s, device=x.device))[None, :].expand(b, s)
     for g, group in enumerate(params.mamba):
-        # --- `every` mamba layers -----------------------------------------
-        for i, p_m in enumerate(group):
-            st = None
-            if cache is not None:
-                st = ssm.MambaState(cache["mamba"]["h"][g, i], cache["mamba"]["conv"][g, i])
-            if decode:
-                y, new_st = ssm.mamba2_step(cfg, p_m, x, st)
-            else:
-                y, new_st = ssm.mamba2_forward(cfg, p_m, x, st)
-            x = x + y
-            if cache is not None:
-                cache["mamba"]["h"][g, i] = new_st.h
-                cache["mamba"]["conv"][g, i] = new_st.conv
 
-        # --- shared attention + FFN block ---------------------------------
-        h = rmsnorm(params.shared_ln[g], x, eps=cfg.norm_eps)
-        if cache is not None:
-            kv = attn_lib.KVCache(cache["attn_k"][g], cache["attn_v"][g], length)
-            a, _ = attn_lib.attention_forward(
-                cfg, params.shared_attn, h, positions=positions, cache=kv,
-                window=ZAMBA_WINDOW, ring=True, use_chunked=s > 4096,
-            )
-        else:
-            a, _ = attn_lib.attention_forward(
-                cfg, params.shared_attn, h, positions=positions,
-                window=ZAMBA_WINDOW, use_chunked=s > 4096,
-            )
-        x = x + a
-        h = rmsnorm(params.shared_ln2[g], x, eps=cfg.norm_eps)
-        x = x + ffn.swiglu_forward(params.shared_ffn, h)
+        def body(x_, g=g, group=group):
+            return _zamba_group(cfg, params, g, group, x_, positions, cache, length, decode)
+
+        x = _body(body, remat and cache is None)(x)
     if cache is None:
         return x, None
     return x, {"mamba": cache["mamba"], "attn_k": cache["attn_k"],
                "attn_v": cache["attn_v"], "length": length + s}
+
+
+def _zamba_group(cfg: ModelConfig, params: ZambaLM, g: int, group, x: torch.Tensor,
+                 positions: torch.Tensor, cache: dict | None, length: int,
+                 decode: bool) -> torch.Tensor:
+    """Group ``g``: its ``every`` Mamba2 layers, then the shared attention +
+    FFN block with the group's norm scales."""
+    s = x.shape[1]
+    for i, p_m in enumerate(group):
+        st = None
+        if cache is not None:
+            st = ssm.MambaState(cache["mamba"]["h"][g, i], cache["mamba"]["conv"][g, i])
+        if decode:
+            y, new_st = ssm.mamba2_step(cfg, p_m, x, st)
+        else:
+            y, new_st = ssm.mamba2_forward(cfg, p_m, x, st)
+        x = x + y
+        if cache is not None:
+            cache["mamba"]["h"][g, i] = new_st.h
+            cache["mamba"]["conv"][g, i] = new_st.conv
+
+    h = rmsnorm(params.shared_ln[g], x, eps=cfg.norm_eps)
+    if cache is not None:
+        kv = attn_lib.KVCache(cache["attn_k"][g], cache["attn_v"][g], length)
+        a, _ = attn_lib.attention_forward(
+            cfg, params.shared_attn, h, positions=positions, cache=kv,
+            window=ZAMBA_WINDOW, ring=True, use_chunked=s > 4096,
+        )
+    else:
+        a, _ = attn_lib.attention_forward(
+            cfg, params.shared_attn, h, positions=positions,
+            window=ZAMBA_WINDOW, use_chunked=s > 4096,
+        )
+    x = x + a
+    h = rmsnorm(params.shared_ln2[g], x, eps=cfg.norm_eps)
+    return x + ffn.swiglu_forward(params.shared_ffn, h)
 
 
 # ======================================================================
@@ -431,33 +478,43 @@ def _init_xlstm(gen, cfg: ModelConfig, *, device) -> XLSTMLM:
 
 
 def _run_xlstm(cfg: ModelConfig, params: XLSTMLM, x: torch.Tensor, cache: dict | None,
-               *, decode: bool):
+               *, decode: bool, remat: bool = False):
     """The block stack; a cache's state tensors are updated in place."""
-    fields = ssm.XLSTMState._fields
     for g, group in enumerate(params.mlstm):
-        for i, p in enumerate(group):
-            h = rmsnorm(params.ln_m[g, i], x, eps=cfg.norm_eps)
-            st = (None if cache is None
-                  else ssm.XLSTMState(*(cache["mlstm"][f][g, i] for f in fields)))
-            step = ssm.mlstm_step if decode else ssm.mlstm_forward
-            y, new = step(cfg, p, h, st)
-            x = x + y
-            if cache is not None:
-                for f in fields:
-                    cache["mlstm"][f][g, i] = getattr(new, f)
-        h = rmsnorm(params.ln_s[g], x, eps=cfg.norm_eps)
-        st = (None if cache is None
-              else ssm.XLSTMState(*(cache["slstm"][f][g] for f in fields)))
-        step = ssm.slstm_step if decode else ssm.slstm_forward
-        y, new = step(cfg, params.slstm[g], h, st)
-        x = x + y
-        if cache is not None:
-            for f in fields:
-                cache["slstm"][f][g] = getattr(new, f)
+
+        def body(x_, g=g, group=group):
+            return _xlstm_group(cfg, params, g, group, x_, cache, decode)
+
+        x = _body(body, remat and cache is None)(x)
     if cache is None:
         return x, None
     cache["length"] = cache["length"] + x.shape[1]
     return x, cache
+
+
+def _xlstm_group(cfg: ModelConfig, params: XLSTMLM, g: int, group, x: torch.Tensor,
+                 cache: dict | None, decode: bool) -> torch.Tensor:
+    """Group ``g``: its mLSTM blocks, then its sLSTM block."""
+    fields = ssm.XLSTMState._fields
+    for i, p in enumerate(group):
+        h = rmsnorm(params.ln_m[g, i], x, eps=cfg.norm_eps)
+        st = (None if cache is None
+              else ssm.XLSTMState(*(cache["mlstm"][f][g, i] for f in fields)))
+        step = ssm.mlstm_step if decode else ssm.mlstm_forward
+        y, new = step(cfg, p, h, st)
+        x = x + y
+        if cache is not None:
+            for f in fields:
+                cache["mlstm"][f][g, i] = getattr(new, f)
+    h = rmsnorm(params.ln_s[g], x, eps=cfg.norm_eps)
+    st = (None if cache is None
+          else ssm.XLSTMState(*(cache["slstm"][f][g] for f in fields)))
+    step = ssm.slstm_step if decode else ssm.slstm_forward
+    y, new = step(cfg, params.slstm[g], h, st)
+    if cache is not None:
+        for f in fields:
+            cache["slstm"][f][g] = getattr(new, f)
+    return x + y
 
 
 # ======================================================================
@@ -470,10 +527,16 @@ FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid", "ssm")
 @dataclasses.dataclass
 class Model:
     """``device`` is where parameters, caches and compute live (default the
-    GPU; without one every method raises ``KernelError``)."""
+    GPU; without one every method raises ``KernelError``).  ``remat`` and
+    ``vocab_chunk`` shape ``train_loss`` as in the JAX package: activation
+    checkpointing of every layer body, and a cross-entropy over vocab
+    chunks of that many columns that never holds the (B, S, V) logits
+    (0: the whole vocabulary at once)."""
 
     cfg: ModelConfig
     device: str | torch.device = "cuda"
+    remat: bool = True
+    vocab_chunk: int = 0
 
     def __post_init__(self):
         if self.cfg.family not in FAMILIES:
@@ -492,6 +555,45 @@ class Model:
         init = {"dense": _init_decoder_lm, "moe": _init_decoder_lm, "vlm": _init_decoder_lm,
                 "encdec": _init_encdec, "hybrid": _init_zamba, "ssm": _init_xlstm}
         return init[cfg.family](gen, cfg, device=dev)
+
+    # ------------------------------------------------------------------
+    def train_loss(self, params: nn.Module, batch: dict) -> tuple[torch.Tensor, dict]:
+        """The training loss of ``batch`` (``tokens`` and ``labels`` (B, S),
+        and the frontends' embeddings): mean token NLL over the labels that
+        are not -100, plus the MoE load-balancing loss.  Returns ``(nll +
+        aux, {"nll": nll, "aux": aux})``, float32 scalars differentiable
+        with respect to ``params``.  The JAX package's routes: a sequence
+        longer than 4096 tokens takes the chunked attention core (the
+        flash-attention kernel on the GPU) in the decoder-only families and
+        zamba2's shared block."""
+        cfg = self.cfg
+        remat = self.remat
+        if cfg.family in ("dense", "moe", "vlm"):
+            x = _embed_tokens(cfg, params, batch)
+            b, s = batch["tokens"].shape
+            pos = _default_positions(cfg, b, s, batch, device=x.device)
+            x, _, aux = _run_decoder_stack(cfg, params, x, positions=pos, cache=None,
+                                           use_chunked=s > CHUNKED_ABOVE, remat=remat)
+        elif cfg.family == "encdec":
+            memory = _run_encoder(cfg, params, batch["frame_embeds"], remat=remat)
+            x = params.embed.embedding[batch["tokens"]].to(memory.dtype)
+            x, _ = _run_decoder_encdec(cfg, params, x, memory, None, remat=remat)
+            aux = torch.zeros((), device=x.device)
+        elif cfg.family == "hybrid":
+            x = _embed_tokens(cfg, params, batch)
+            x, _ = _run_zamba(cfg, params, x, None, decode=False, remat=remat)
+            aux = torch.zeros((), device=x.device)
+        else:
+            x = _embed_tokens(cfg, params, batch)
+            x, _ = _run_xlstm(cfg, params, x, None, decode=False, remat=remat)
+            aux = torch.zeros((), device=x.device)
+        if self.vocab_chunk:
+            h = rmsnorm(params.final_norm, x, eps=cfg.norm_eps)
+            nll = common.softmax_cross_entropy_chunked(h, params.lm_head, batch["labels"],
+                                                       chunk=self.vocab_chunk)
+        else:
+            nll = common.softmax_cross_entropy(_lm_logits(cfg, params, x), batch["labels"])
+        return nll + aux, {"nll": nll, "aux": aux}
 
     # ------------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int) -> dict:

@@ -104,7 +104,8 @@ def run_pair(pair, seed, *, max_len=20, with_jax=True):
 
 
 def _close(got: torch.Tensor, want, tol: float = TOL) -> None:
-    np.testing.assert_allclose(got.to(torch.float32).numpy(), np.asarray(want, np.float32),
+    want = want.detach() if isinstance(want, torch.Tensor) else want
+    np.testing.assert_allclose(got.detach().to(torch.float32).numpy(), np.asarray(want, np.float32),
                                atol=tol, rtol=tol)
 
 

@@ -41,7 +41,7 @@ def _pair(rng, shape, dtype: str):
 
 def _close(got: torch.Tensor, want, tol: float) -> None:
     np.testing.assert_allclose(
-        got.to(torch.float32).numpy(), np.asarray(want, np.float32), atol=tol, rtol=tol
+        got.detach().to(torch.float32).numpy(), np.asarray(want, np.float32), atol=tol, rtol=tol
     )
 
 

@@ -37,6 +37,8 @@ def test_port_has_the_expected_modules():
         "runtime/__init__.py", "runtime/sharding.py", "runtime/elastic.py",
         "profilers/network.py", "profilers/energy.py", "configs/deepseek_v2_236b.py",
         "configs/qwen2_vl_72b.py", "configs/seamless_m4t_large_v2.py", "configs/xlstm_1p3b.py",
+        "train/optimizer.py", "train/trainer.py", "data/pipeline.py", "checkpoint/store.py",
+        "runtime/compression.py", "launch/train.py",
     ):
         assert expected in names
 
@@ -57,11 +59,14 @@ def test_kernel_sources_are_in_the_tree():
     assert (csrc / "flash_attention.cu").is_file()
     assert (csrc / "mamba_scan.cu").is_file()
     assert (csrc / "mcop_phase.cu").is_file()
+    assert (csrc / "flash_attention_bwd.cu").is_file()
+    assert (csrc / "mamba_scan_bwd.cu").is_file()
     from repro_torch.kernels import build
 
     for name in build.KERNEL_SOURCES:
         assert (csrc / f"{name}.cu").is_file()
-    assert {"flash_attention", "mamba_scan", "mcop_phase"} <= set(build.KERNEL_SOURCES)
+    assert {"flash_attention", "mamba_scan", "mcop_phase", "flash_attention_bwd",
+            "mamba_scan_bwd"} <= set(build.KERNEL_SOURCES)
 
 
 def test_import_and_cpu_solve_do_not_build_or_load_jax(tmp_path):
@@ -76,6 +81,7 @@ import repro_torch.convert, repro_torch.configs, repro_torch.models.transformer
 import repro_torch.serving, repro_torch.launch.serve, repro_torch.profilers
 import repro_torch.core.placement, repro_torch.launch.serve_broker
 import repro_torch.core.mcop_shard, repro_torch.launch.mesh, repro_torch.runtime
+import repro_torch.train, repro_torch.data, repro_torch.checkpoint, repro_torch.launch.train
 from repro_torch.kernels import build
 def refuse(*a, **k):
     raise AssertionError("the build was reached on the CPU")
@@ -116,6 +122,11 @@ for arch in sorted(ARCHITECTURES):   # every family, through the long-prompt rou
     assert logits.shape == (1, 256) and cache["length"] == 20, arch
     logits, cache = m.decode_step(params, torch.ones(1, 1, dtype=torch.long), cache)
     assert logits.shape == (1, 256) and cache["length"] == 21, arch
+    if cfg.family == "hybrid":   # a training step's backward on the CPU: plain versions
+        batch["labels"] = torch.ones(1, 20, dtype=torch.long)
+        loss, _ = m.train_loss(params, batch)
+        loss.backward()
+        assert params.mamba[0][0].a_log.grad is not None
 assert build._LIBS == {}
 assert "jax" not in sys.modules and "repro" not in sys.modules
 print("ok")
@@ -140,7 +151,7 @@ ENTRIES = ["mcop_batch", "solve_envs", "mcop", "price_summary",
            "model_init", "model_cache", "engine", "serve_main", "placement_batch",
            "min_cut", "serve_broker_main", "serve_broker_reference",
            "solver_mesh", "elastic_manager", "sharded_solve_envs", "model_init_moe",
-           "engine_extras", "serve_main_encdec"]
+           "engine_extras", "serve_main_encdec", "train_main", "train_dataset"]
 
 _NO_GPU_CODE = """
 import json
@@ -176,6 +187,8 @@ from repro_torch.core.placement import TPUV5E_TIER, plan_placement_batch
 from repro_torch.launch.mesh import make_solver_mesh
 from repro_torch.runtime import ElasticMeshManager
 from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.train import main as train_main
+from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.models.transformer import Model
 from repro_torch.profilers import stage_specs
 from repro_torch.serving import ServingConfig, ServingEngine
@@ -191,6 +204,8 @@ runs = {
     "model_init_moe": lambda: Model(reduce_config(get_config("deepseek-v2-236b"))).init(0),
     "engine_extras": lambda: ServingEngine(Model(vlm), None, ServingConfig(), extras={}),
     "serve_main_encdec": lambda: serve_main(["--arch", "seamless-m4t-large-v2", "--reduced"]),
+    "train_main": lambda: train_main(["--arch", "zamba2-1.2b", "--reduced", "--steps", "1"]),
+    "train_dataset": lambda: SyntheticLMDataset(DataConfig(8, 2, 256), zamba).batch(0),
     "placement_batch": lambda: plan_placement_batch(
         stage_specs(zamba, SHAPES["decode_32k"]), TPUV5E_TIER, TPUV5E_TIER,
         inter_tier_bws=[1e9]),

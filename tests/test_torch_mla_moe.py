@@ -189,4 +189,4 @@ def test_moe_gates_and_routing_equal_jax(deepseek):
     t_vals, t_ids = t_ffn._top_k(torch.softmax(t_common.linear(tp.router, xt), -1),
                                  cfg.moe.top_k)
     assert t_ids.tolist() == np.asarray(j_ids).tolist()
-    np.testing.assert_allclose(t_vals.numpy(), np.asarray(j_vals), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(t_vals.detach().numpy(), np.asarray(j_vals), rtol=1e-6, atol=1e-7)

@@ -46,7 +46,7 @@ def _np(a) -> np.ndarray:
 
 
 def _close(got: torch.Tensor, want, tol: float = TOL) -> None:
-    np.testing.assert_allclose(got.to(torch.float32).numpy(), _np(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got.detach().to(torch.float32).numpy(), _np(want), atol=tol, rtol=tol)
 
 
 @pytest.fixture(scope="module")
