@@ -37,15 +37,23 @@ one JSON object per line:
                       (24, 16); each B4 check launches the variant its dtype
                       and head widths call for (tensor cores: bf16 at (64,
                       64), (128, 128) and (192, 128); CUDA cores: the rest).
+                      B4's row log-sum-exp L (written for B4-bwd) against
+                      torch.logsumexp of the plain scores in f32 and bf16,
+                      on both variants, rows without a visible key at 0,
+                      and the output beside it bit for bit the output
+                      without it.
                       Then the two backward kernels against autograd of the
-                      plain versions: B4-bwd at zamba2-1.2b's training shape
+                      plain versions, each from the forward's L:
+                      B4-bwd at zamba2-1.2b's training shape
                       (bf16, 2 x 32 heads x 8192, window 4096; timed beside
                       SDPA's forward + backward), qwen2-7b's GQA 28/4 at
                       (128, 128), odd and padded lengths, MLA's (192, 128)
-                      and (24, 16) in f32 and bf16; B5-bwd at zamba2-1.2b's
-                      training shape (2 x 64 heads x 32 chunks of 256), a
-                      ragged final chunk and the reduced widths (tolerances
-                      stated per dtype).
+                      and (24, 16) in f32 and bf16, each launching the
+                      variant its dtype and widths call for (tensor cores:
+                      bf16 at (64, 64), (128, 128) and (192, 128)); B5-bwd at
+                      zamba2-1.2b's training shape (2 x 64 heads x 32 chunks
+                      of 256), a ragged final chunk and the reduced widths
+                      (tolerances stated per dtype).
 4. ``solve_plane``  — ``solve_envs`` / ``mcop_batch`` at full size.
 5. ``broker``       — a two-tenant ``OffloadBroker`` tick loop (100 000
                       batched sessions + 256 per-object sessions), one fused
@@ -93,13 +101,14 @@ one JSON object per line:
                       2 x 8192 tokens a step, a warm-up step and five more,
                       a checkpoint saved at step 3: losses finite and
                       falling, tokens/s, peak memory, and every step's
-                      launches (B4 2 x 19, B4-bwd 19, B5 2 x 38, B5-bwd 38);
+                      launches (B4 2 x 19, B4-bwd 19, all on its tensor-core
+                      variant, B5 2 x 38, B5-bwd 38);
                       then a run resumed from the step-3 checkpoint alone,
                       whose losses must equal the first run's bit for bit.
    ``train_replay`` — three training steps of reduced zamba2 and qwen2-7b
                       in f32 at 4160 tokens on the card (kernels) and on
                       the CPU (plain versions): loss and gradient norm
-                      within 1e-4 relative.
+                      within 1e-4 relative; B4-bwd on its CUDA-core variant.
 8. ``min_cut``      — the per-phase kernel (B3) against its plain version on
                       single phases of 6-1024 vertices ((s, t) equal, cuts to
                       ``rtol=1e-5``), then ``kernels.ops.mcop_min_cut`` on the
@@ -137,7 +146,7 @@ solve-plane shapes (kernel time x graphs the card works on at once / absorb
 steps) and of B3, and B3's absorb steps over the per-phase path, with its
 kernel time estimated from them and the device loop's timed shapes; a
 ``{"kernels": [...]}`` line gives, for all five kernels and the two
-backward kernels, its launches on
+backward kernels (B4-bwd with its variant), its launches on
 its main path (B1 and B2 also on the fleet path, B4 also on the families'
 paths and at MLA's heads), its measured time, its plain version's measured
 time, the time of one PyTorch call computing the same function where there
@@ -246,7 +255,8 @@ MLA_FLASH_CHECKS = (
 
 
 def expected_flash_variant(dtype: str, hd: int, hd_v: int | None = None) -> str:
-    """The B4 variant a check of ``dtype`` and ``(hd, hd_v)`` must launch."""
+    """The B4 (and B4-bwd) variant a check of ``dtype`` and ``(hd, hd_v)``
+    must launch."""
     pair = (hd, hd if hd_v is None else hd_v)
     return ("tensor_cores" if dtype == "bfloat16" and pair in ((64, 64), (128, 128), (192, 128))
             else "cuda_cores")
@@ -278,6 +288,10 @@ TRAIN = {"arch": "zamba2-1.2b", "seq_len": 8192, "global_batch": 2, "steps": 6,
          "ckpt_at": 3, "seed": 0, "lr": 1e-3}
 TRAIN_KERNELS = ("flash_attention_kernel", "flash_attention_bwd_kernel",
                  "mamba_chunk_scan_kernel", "mamba_chunk_scan_bwd_kernel")
+# B4-bwd's launches by variant (flash_attention.BWD_VARIANT_LAUNCHES), as
+# phase train's steps and train_replay record them
+BWD_VARIANT_KEYS = {"tensor_cores": "flash_attention_bwd_kernel.tensor_cores",
+                    "cuda_cores": "flash_attention_bwd_kernel.cuda_cores"}
 # three steps card vs CPU at reduced width in f32, s = 4160 > 4096 so the
 # attention runs B4 and B4-bwd; loss and grad norm: f32 sums in another
 # order through two layers and their backward, and one optimizer step
@@ -1557,6 +1571,57 @@ def check_flash(rng, case, *, measure: bool) -> dict:
     return entry
 
 
+# B4's row log-sum-exp L (return_lse, which FlashAttentionFn keeps for
+# B4-bwd), MLA_FLASH_CHECKS' fields: the tensor-core variant at (64, 64),
+# (128, 128) and (192, 128), the CUDA-core one in f32 and at a narrow bf16
+# head, and rows that see no key (full attention, window 16, 63 keys: rows
+# from 78 on), where L is 0.  Held to torch.logsumexp of the plain version's
+# scaled scores: |L - want| <= FLASH_LSE_TOL x max(1, |want|) (f32 sums of up
+# to 4500 exponentials in another order, and the SFU's exp2 in the
+# tensor-core variant, ~1e-6 of L).  The output written beside L must equal
+# the output without it bit for bit (serving's path passes no L).
+FLASH_LSE_CHECKS = (
+    (2, 8, 2, 1000, 1337, 64, False, 300, "bfloat16", "model"),
+    (1, 8, 8, 4500, 4500, 128, True, 4096, "bfloat16", "heads"),
+    (2, 4, 4, 1000, 1337, 192, False, 300, "bfloat16", "heads", 128),
+    (1, 4, 2, 200, 63, 64, False, 16, "bfloat16", "heads"),
+    (1, 4, 2, 200, 63, 64, False, 16, "float32", "heads"),
+    (1, 8, 8, 4500, 4500, 64, True, 4096, "float32", "model"),
+    (2, 4, 2, 1000, 1337, 32, True, 300, "bfloat16", "model"),
+)
+FLASH_LSE_TOL = 1e-4
+
+
+def check_flash_lse(rng, case) -> dict:
+    from repro_torch.kernels.flash_attention import VARIANT_LAUNCHES, flash_attention_kernel
+    from repro_torch.kernels.ref import flash_attention_lse_plain
+
+    b, h, hkv, sq, sk, hd, causal, window, dtype, layout, *rest = case
+    hd_v = rest[0] if rest else hd
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    q, k, v = flash_inputs(gen, case)
+    variant = expected_flash_variant(dtype, hd, hd_v)
+    before = dict(VARIANT_LAUNCHES)
+    out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window, return_lse=True)
+    plain_out = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ran = {name: VARIANT_LAUNCHES[name] - before[name] for name in VARIANT_LAUNCHES}
+    if ran != {name: 2 * int(name == variant) for name in VARIANT_LAUNCHES}:
+        raise AssertionError(f"flash lse {case}: launched {ran}, expected the {variant} variant")
+    if not torch.equal(out, plain_out):
+        raise AssertionError(f"flash lse {case}: the output differs when L is written")
+    want = flash_attention_lse_plain(q, k, causal=causal, window=window)
+    err = (lse - want).abs()
+    worst = float((err / (FLASH_LSE_TOL * want.abs().clamp_min(1.0))).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"flash lse {case}: L max error {float(err.max())}, "
+                             f"{worst} x the tolerance")
+    return {"name": "flash_attention_kernel.lse", "shape": [b, h, hkv, sq, sk, hd, hd_v],
+            "variant": variant, "causal": causal, "window": window, "dtype": dtype,
+            "tol": FLASH_LSE_TOL, "max_abs_err": float(err.max()), "max_err_over_tol": worst,
+            "rows_without_keys": int((want == 0).sum()), "out_equal_without_lse": True}
+
+
 def mamba_inputs(gen, case):
     """(x, dt, ld, Bm, Cm, h0) of a MAMBA_CHECKS case, in its layout, as
     kernels.ops.mamba_chunk_scan hands them to the kernel."""
@@ -1697,7 +1762,7 @@ def hold_grads(tag, got, want, names, tol, *, floor=0.0) -> dict:
 
 def check_flash_bwd(rng, case, *, measure: bool) -> dict:
     from repro_torch.kernels.flash_attention import (
-        BWD_LAUNCHES, flash_attention_bwd_kernel, flash_attention_kernel,
+        BWD_LAUNCHES, BWD_VARIANT_LAUNCHES, flash_attention_bwd_kernel, flash_attention_kernel,
     )
 
     b, h, hkv, sq, sk, hd, causal, window, dtype, layout, hd_v = case
@@ -1707,18 +1772,22 @@ def check_flash_bwd(rng, case, *, measure: bool) -> dict:
     shape = (b, h, sq, hd_v) if layout == "heads" else (b, sq, h, hd_v)
     dout = torch.randn(shape, generator=gen, device=DEVICE).to(q.dtype)
     dout = dout if layout == "heads" else dout.transpose(1, 2)
-    out = flash_attention_kernel(q, k, v, causal=causal, window=window)
-    before = BWD_LAUNCHES["flash_attention_bwd_kernel"]
-    got = flash_attention_bwd_kernel(q, k, v, out, dout, causal=causal, window=window)
+    out, lse = flash_attention_kernel(q, k, v, causal=causal, window=window, return_lse=True)
+    variant = expected_flash_variant(dtype, hd, hd_v)
+    before, before_v = BWD_LAUNCHES["flash_attention_bwd_kernel"], dict(BWD_VARIANT_LAUNCHES)
+    got = flash_attention_bwd_kernel(q, k, v, out, dout, lse, causal=causal, window=window)
     torch.cuda.synchronize()
     if BWD_LAUNCHES["flash_attention_bwd_kernel"] - before != 1:
         raise AssertionError(f"flash bwd {case}: the backward kernel did not launch once")
+    ran = {n: BWD_VARIANT_LAUNCHES[n] - before_v[n] for n in BWD_VARIANT_LAUNCHES}
+    if ran != {n: int(n == variant) for n in BWD_VARIANT_LAUNCHES}:
+        raise AssertionError(f"flash bwd {case}: launched {ran}, expected the {variant} variant")
     want, plain_ms = timed(lambda: flash_bwd_plain_sliced(q, k, v, dout, causal=causal,
                                                           window=window))
     errs = hold_grads(f"flash bwd {case}", got, want, ("dq", "dk", "dv"), tol)
     del want
     entry = {"name": "flash_attention_bwd_kernel", "shape": [b, h, hkv, sq, sk, hd, hd_v],
-             "causal": causal, "window": window, "dtype": dtype, "layout": layout,
+             "variant": variant, "causal": causal, "window": window, "dtype": dtype, "layout": layout,
              "tol": tol, "grads": errs,
              "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
              "max_err_over_tol": max(e["err_over_tol"] for e in errs.values())}
@@ -1731,7 +1800,7 @@ def check_flash_bwd(rng, case, *, measure: bool) -> dict:
         flops = 2.0 * (3 * hd + 2 * hd_v) * pairs * b * h
         b_ms, b_by = bound(nbytes, flops,
                            BF16_FLOP_PER_S if dtype == "bfloat16" else FP32_FLOP_PER_S)
-        ms = cuda_ms(lambda: flash_attention_bwd_kernel(q, k, v, out, dout, causal=causal,
+        ms = cuda_ms(lambda: flash_attention_bwd_kernel(q, k, v, out, dout, lse, causal=causal,
                                                         window=window), reps=2)
         idx = torch.arange(sq, device=DEVICE)[:, None], torch.arange(sk, device=DEVICE)[None]
         band = torch.ones((sq, sk), dtype=torch.bool, device=DEVICE)
@@ -1811,6 +1880,7 @@ def phase_model_kernel_checks(rng) -> dict:
     so is the first MLA shape (deepseek-v2's prefill)."""
     flash = [check_flash(rng, c, measure=i == 0) for i, c in enumerate(FLASH_CHECKS)]
     mla = [check_flash(rng, c, measure=i == 0) for i, c in enumerate(MLA_FLASH_CHECKS)]
+    lse = [check_flash_lse(rng, c) for c in FLASH_LSE_CHECKS]
     torch.cuda.empty_cache()
     mamba = [check_mamba(rng, c, measure=i == 0) for i, c in enumerate(MAMBA_CHECKS)]
     torch.cuda.empty_cache()
@@ -1821,7 +1891,7 @@ def phase_model_kernel_checks(rng) -> dict:
                  for i, c in enumerate(MAMBA_BWD_CHECKS)]
     torch.cuda.empty_cache()
     return {"phase": "model_kernel_checks",
-            "entries": flash + mla + mamba + flash_bwd + mamba_bwd}
+            "entries": flash + mla + lse + mamba + flash_bwd + mamba_bwd}
 
 
 # ----------------------------------------------------------------------
@@ -2201,12 +2271,18 @@ def train_argv(ckpt_dir: str) -> list[str]:
             "--ckpt-every", str(spec["ckpt_at"]), "--device", DEVICE]
 
 
+def bwd_variant_launches() -> dict:
+    from repro_torch.kernels.flash_attention import BWD_VARIANT_LAUNCHES
+
+    return {key: BWD_VARIANT_LAUNCHES[v] for v, key in BWD_VARIANT_KEYS.items()}
+
+
 def train_step_launches(record: list):
-    """A hook of ``launch.train.run``: each step's launches of B4, B4-bwd,
-    B5 and B5-bwd, read and zeroed after the step."""
+    """A hook of ``launch.train.run``: each step's launches of B4, B4-bwd
+    (also by variant), B5 and B5-bwd, read and zeroed after the step."""
     def hook(step, metrics):
         launches = all_launches()
-        record.append({k: launches[k] for k in TRAIN_KERNELS})
+        record.append({**{k: launches[k] for k in TRAIN_KERNELS}, **bwd_variant_launches()})
         reset_all_launches()
     return hook
 
@@ -2222,8 +2298,9 @@ def phase_train() -> dict:
     fall: the last two steps' mean below step 0's loss (step 1 overshoots
     it at the first full learning rate, so a window holding step 1 is no
     evidence).  Every step launches B4 twice per shared
-    block (forward and remat's recompute: 2 x 19), B4-bwd once (19), B5
-    twice per Mamba2 layer (2 x 38) and B5-bwd once (38).  Last,
+    block (forward and remat's recompute: 2 x 19), B4-bwd once (19, each on
+    its tensor-core variant), B5 twice per Mamba2 layer (2 x 38) and B5-bwd
+    once (38).  Last,
     ``train_step_breakdown`` outside the counted path."""
     import shutil
     import tempfile
@@ -2235,7 +2312,8 @@ def phase_train() -> dict:
     groups = cfg.n_layers // cfg.shared_attn_every
     want = {"flash_attention_kernel": 2 * groups, "flash_attention_bwd_kernel": groups,
             "mamba_chunk_scan_kernel": 2 * cfg.n_layers,
-            "mamba_chunk_scan_bwd_kernel": cfg.n_layers}
+            "mamba_chunk_scan_bwd_kernel": cfg.n_layers,
+            BWD_VARIANT_KEYS["tensor_cores"]: groups, BWD_VARIANT_KEYS["cuda_cores"]: 0}
     ckpt = tempfile.mkdtemp(prefix="smoke_train_")
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -2380,7 +2458,8 @@ def replay_training(arch: str) -> dict:
         t0 = time.perf_counter()
         _, hist = train_loop(Model(cfg, device=dev).train_loss, params,
                              data.take(spec["steps"]), tcfg)
-        runs[dev] = (hist, all_launches(), time.perf_counter() - t0)
+        runs[dev] = (hist, {**all_launches(), **bwd_variant_launches()},
+                     time.perf_counter() - t0)
     (got, launches, dev_s), (want, _, cpu_s) = runs[DEVICE], runs["cpu"]
     errs = {}
     for key in ("loss", "grad_norm"):
@@ -2398,7 +2477,10 @@ def replay_training(arch: str) -> dict:
     expect = {"flash_attention_kernel": 2 * attn * steps,
               "flash_attention_bwd_kernel": attn * steps,
               "mamba_chunk_scan_kernel": 2 * mamba * steps,
-              "mamba_chunk_scan_bwd_kernel": mamba * steps}
+              "mamba_chunk_scan_bwd_kernel": mamba * steps,
+              # f32: B4-bwd's CUDA-core variant
+              BWD_VARIANT_KEYS["cuda_cores"]: attn * steps,
+              BWD_VARIANT_KEYS["tensor_cores"]: 0}
     if {k: launches[k] for k in expect} != expect:
         raise AssertionError(f"train_replay {arch}: launches {launches}, expected {expect}")
     return {"arch": arch, "family": cfg.family, "seq_len": spec["seq_len"],
@@ -3117,6 +3199,10 @@ def main() -> int:
             "replaces": replaces, "tpu_kernel": None,
             "launches": trained["main_path_launches"][name],
             "launches_per_step": trained["launches_per_step"][name],
+            **({"variant": timed_entry["variant"],
+                "launches_by_variant": {v: trained["main_path_launches"][key]
+                                        for v, key in BWD_VARIANT_KEYS.items()}}
+               if "variant" in timed_entry else {}),
             **{k: timed_entry[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "shape", "tflops", "bound_share")},

@@ -57,9 +57,17 @@
 //   order with Q, K, V staged in shared memory as f32; each thread keeps a
 //   4 x 4 tile of scores and a 4 x hd_v/16 tile of the accumulator in registers;
 //   products in f32 with explicit fmaf, exactly the Pallas body's arithmetic.
+//
+// Both variants write each row's log-sum-exp L of the scaled scores to
+// `lse` ((B, H, Sq) f32, contiguous) when the pointer is non-null, in base
+// e: L = log sum_k exp(scale q.k) over the visible keys, so P = exp(scale
+// q.k - L).  A row with no visible key gets L = 0 (its P is 0 by the mask).
+// The backward (csrc/flash_attention_bwd.cu) reads it; serving passes null.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace repro_torch {
 
@@ -88,9 +96,9 @@ struct Strides {
 template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int Hkv, int Sq, int Sk, int causal, int window,
-                       float scale, Strides sd) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+                       int causal, int window, float scale, Strides sd) {
   constexpr int DJ = (HDV + 15) / 16;  // accumulator columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                        // [kBQ][HD + 1]
@@ -218,6 +226,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= Sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * H + h) * Sq + qp] = l[i] > 0.f ? m[i] + logf(l[i]) : 0.f;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
@@ -228,7 +238,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD, int HDV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
                    int B, int H, int Hkv, int Sq, int Sk, int causal,
                    int window, float scale, const Strides& sd, cudaStream_t st) {
   const int smem = smem_floats<HD, HDV>() * (int)sizeof(float);
@@ -238,7 +248,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, HD, HDV><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), H, Hkv, Sq, Sk, causal, window, scale, sd);
+      static_cast<T*>(out), lse, H, Hkv, Sq, Sk, causal, window, scale, sd);
   return cudaGetLastError();
 }
 
@@ -246,12 +256,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // MLA's (192, 128) with the reduced (24, 16) the tests' small configs give.
 template <typename T>
 cudaError_t dispatch_hd(int hd, int hd_v, const void* q, const void* k, const void* v,
-                        void* out, int B, int H, int Hkv, int Sq, int Sk,
+                        void* out, float* lse, int B, int H, int Hkv, int Sq, int Sk,
                         int causal, int window, float scale, const Strides& sd,
                         cudaStream_t st) {
 #define REPRO_FLASH_PAIR(A, C)                                                           \
   if (hd == A && hd_v == C)                                                             \
-    return launch<T, A, C>(q, k, v, out, B, H, Hkv, Sq, Sk, causal, window, scale, sd, st);
+    return launch<T, A, C>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, causal, window, scale, sd, \
+                           st);
   REPRO_FLASH_PAIR(8, 8)
   REPRO_FLASH_PAIR(16, 16)
   REPRO_FLASH_PAIR(32, 32)
@@ -273,107 +284,6 @@ namespace tc {
 
 constexpr int kBK = 64;        // keys per tile
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, asynchronously; zero-filled when !valid
-// (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// (lo, hi) -> one bf16x2 register, lo in the low half: the A-operand order.
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Split two f32 values into their bf16 rounding and the bf16 rounding of
-// what that leaves: x = hi + lo to ~2^-16 |x|.
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);  // x0 in the low half
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// ---- wgmma (Hopper's warpgroup products) ----
-// Every shared-memory operand is a stack of rows of 64 bf16 (128 bytes) in
-// the 128-byte swizzle: the 16-byte chunk c of row r sits at chunk c ^ (r %
-// 8), in atoms of 8 rows (1024 bytes, 1024-byte aligned).  The descriptor's
-// stride between 8-row groups (SBO) is 1024 bytes; its other stride is not
-// read when the operand's K (K-major) or N (MN-major) is one 64-wide row.
-// Measured on an H100 by tools/torch_kernel_probe.py wgmma-layout: a k step
-// of 16 advances a K-major operand by 32 bytes along its rows and an
-// MN-major one by 2048 bytes (two 8-row groups).
-__device__ __forceinline__ uint64_t wg_desc(const void* p) {
-  const uint32_t a = smem_addr(p);
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (64 x 64) (+)= a (64 x 16, shared, K-major) . b (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_s(float (&d)[32], uint64_t da, uint64_t db,
-                                        int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64) += a (64 x 16, registers) . b (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_o(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // Shared memory of the wgmma variant: Q [64 NWG rows][HD], K [2
 // stages][kBK][HD] and V [2 stages][kBK][HDV], bf16, each as width / 64
 // column blocks of [rows][64] in
@@ -385,31 +295,13 @@ constexpr int smem_bytes() {
   return (64 * NWG + 2 * kBK) * HD * 2 + 2 * kBK * HDV * 2 + 1024;
 }
 
-// rows [row0, row0 + rows) of a [*][HD] bf16 matrix into `dst` as above;
-// rows at or past `limit` are zero-filled.
-template <int HD, int NT>
-__device__ __forceinline__ void load_swizzled(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                              long long stride, int row0, int rows,
-                                              int limit) {
-  constexpr int KC = HD / 8;  // 16-byte chunks a row
-  for (int e = threadIdx.x; e < rows * KC; e += NT) {
-    const int r = e / KC, c = e % KC;
-    const bool in = row0 + r < limit;
-    cp_async16(smem_addr(dst + (c >> 3) * rows * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3)),
-               src + (in ? (long long)(row0 + r) * stride + c * 8 : 0), in);
-  }
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 template <int HD, int HDV, int NWG, int MINB>
 __global__ void __launch_bounds__(128 * NWG, MINB)
 flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ out, int B, int H, int Hkv,
+                          __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                          int B, int H, int Hkv,
                           int Sq, int Sk, int causal, int window, float scale_log2,
                           Strides sd) {
   constexpr int NT = 128 * NWG;    // threads: NWG warpgroups
@@ -568,6 +460,10 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int qp = q0 + row_w + g + 8 * r;
     if (qp >= Sq) continue;
+    // m is in units of log2: L = ln 2 (m + log2 l)
+    if (lse != nullptr && t4 == 0)
+      lse[((long long)b * H + h) * Sq + qp] =
+          sum > 0.f ? (m[r] + log2f(sum)) * 0.6931471805599453f : 0.f;
     const float inv = 1.f / fmaxf(sum, 1e-30f);
     __nv_bfloat16* orow = og + qp * sd.o[2];
 #pragma unroll
@@ -581,9 +477,9 @@ flash_attention_kernel_tc(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD, int HDV, int NWG, int MINB>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int H, int Hkv, int Sq, int Sk, int causal, int window, float scale,
-                   const Strides& sd, cudaStream_t st) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int B, int H, int Hkv, int Sq, int Sk, int causal, int window,
+                   float scale, const Strides& sd, cudaStream_t st) {
   constexpr int smem = smem_bytes<HD, HDV, NWG>();
   static_assert(smem <= 232448, "a block may have 227 KB of shared memory");
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel_tc<HD, HDV, NWG, MINB>,
@@ -593,8 +489,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   flash_attention_kernel_tc<HD, HDV, NWG, MINB><<<(unsigned)blocks, 128 * NWG, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), B, H, Hkv,
-      Sq, Sk, causal, window, scale * 1.4426950408889634f, sd);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, B, H,
+      Hkv, Sq, Sk, causal, window, scale * 1.4426950408889634f, sd);
   return cudaGetLastError();
 }
 
@@ -602,14 +498,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 }  // namespace repro_torch
 
-// hd: q's and k's head width; hd_v: v's and out's.  dtype: 0 = float32, 1 =
+// hd: q's and k's head width; hd_v: v's and out's.  lse: null, or (B, H, Sq)
+// f32 for each row's log-sum-exp (base e; see the header).  dtype: 0 = float32, 1 =
 // bfloat16.  variant: 0 = CUDA cores, 1 = tensor cores (bf16 at (hd, hd_v) =
 // (64, 64), (128, 128) or (192, 128) only; rows 16-byte aligned).  window < 0 means
 // no window.  strides: 12 element strides, (batch, head, row) of q, k, v and
 // out in that order.  Returns the CUDA error of the launch (0 on success);
 // runs on `stream`.
 extern "C" int repro_torch_flash_attention(const void* q, const void* k,
-                                           const void* v, void* out, int B,
+                                           const void* v, void* out, float* lse, int B,
                                            int H, int Hkv, int Sq, int Sk,
                                            int hd, int hd_v, int causal, int window,
                                            float scale, int dtype, int variant,
@@ -627,22 +524,22 @@ extern "C" int repro_torch_flash_attention(const void* q, const void* k,
   if (variant == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;
     if (hd == 64 && hd_v == 64)
-      return (int)repro_torch::tc::launch<64, 64, 2, 2>(q, k, v, out, B, H, Hkv, Sq, Sk,
-                                                        causal, window, scale, sd, st);
+      return (int)repro_torch::tc::launch<64, 64, 2, 2>(q, k, v, out, lse, B, H, Hkv, Sq,
+                                                        Sk, causal, window, scale, sd, st);
     if (hd == 128 && hd_v == 128)
-      return (int)repro_torch::tc::launch<128, 128, 4, 1>(q, k, v, out, B, H, Hkv, Sq, Sk,
-                                                          causal, window, scale, sd, st);
+      return (int)repro_torch::tc::launch<128, 128, 4, 1>(q, k, v, out, lse, B, H, Hkv, Sq,
+                                                          Sk, causal, window, scale, sd, st);
     if (hd == 192 && hd_v == 128)
-      return (int)repro_torch::tc::launch<192, 128, 4, 1>(q, k, v, out, B, H, Hkv, Sq, Sk,
-                                                          causal, window, scale, sd, st);
+      return (int)repro_torch::tc::launch<192, 128, 4, 1>(q, k, v, out, lse, B, H, Hkv, Sq,
+                                                          Sk, causal, window, scale, sd, st);
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err =
       dtype == 0
-          ? repro_torch::dispatch_hd<float>(hd, hd_v, q, k, v, out, B, H, Hkv, Sq, Sk,
-                                            causal, window, scale, sd, st)
-          : repro_torch::dispatch_hd<__nv_bfloat16>(hd, hd_v, q, k, v, out, B, H, Hkv,
-                                                    Sq, Sk, causal, window, scale,
+          ? repro_torch::dispatch_hd<float>(hd, hd_v, q, k, v, out, lse, B, H, Hkv, Sq,
+                                            Sk, causal, window, scale, sd, st)
+          : repro_torch::dispatch_hd<__nv_bfloat16>(hd, hd_v, q, k, v, out, lse, B, H,
+                                                    Hkv, Sq, Sk, causal, window, scale,
                                                     sd, st);
   return (int)err;
 }

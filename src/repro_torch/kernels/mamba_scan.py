@@ -18,8 +18,11 @@ a CPU tensor runs :func:`~repro_torch.kernels.ref.mamba_chunk_scan_plain`.
 no TPU counterpart: the JAX package autodiffs its ``lax.scan`` over
 chunks): the gradients of ``x``, ``dt``, ``ld``, ``Bm``, ``Cm`` and ``h0``
 from the inputs, the forward's states entering each chunk and the output
-gradients, in f32 on the CUDA cores, deterministic (no atomics); six
-launches a call, counted once in ``BWD_LAUNCHES``.
+gradients, every product on the tensor cores as 3xTF32 like the forward's,
+deterministic (no atomics); six launches a call (``C·Bᵀ`` once per (batch,
+chunk); each chunk's part of the state gradient; its reverse carry; one
+pass per (batch, chunk, step tile) that walks the heads in order; d ld;
+dCm), counted once in ``BWD_LAUNCHES``.
 A CPU tensor takes autograd through the plain version
 (:func:`~repro_torch.kernels.ref.mamba_chunk_scan_bwd_plain`).
 :class:`MambaScanFn` joins the two (the forward keeps its states scratch
@@ -161,7 +164,7 @@ def _bwd_library():
     lib = build.load("mamba_scan_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.repro_torch_mamba_scan_bwd.argtypes = (
-        [P] * 21 + [I] * 6 + [ctypes.POINTER(ctypes.c_longlong), P])
+        [P] * 21 + [I] * 7 + [ctypes.POINTER(ctypes.c_longlong), P])
     return lib  # restype: ctypes' default c_int, the CUDA error code
 
 
@@ -212,16 +215,22 @@ def mamba_chunk_scan_bwd_kernel(
             torch.empty((b, h, p, n), dtype=f32, device=dev))
     if b * h == 0:
         return outs
-    # scratch: the state gradient leaving each chunk, cum_end, the two parts
-    # of d cum, each s tile's sum of T, and every head's part of dBm and dCm
+    # scratch: C·Bᵀ in 64-step tiles, the state gradient leaving each chunk,
+    # cum_end, d cum's parts (each s tile's own rows; the M row sums of each
+    # s tile; each s tile's sum of T), and each s tile's part of dCm, summed
+    # over the heads
     n_tiles = -(-q // 64)
-    scratch = (torch.empty((b, h, nc, p, n), dtype=f32, device=dev),
+    qg = n_tiles * 64
+    scratch = (torch.empty((b, nc, qg, qg), dtype=f32, device=dev),
+               torch.empty((b, h, nc, p, n), dtype=f32, device=dev),
                torch.empty((b, h, nc), dtype=f32, device=dev),
                torch.empty((b, h, nc, q), dtype=f32, device=dev),
-               torch.empty((b, h, nc, q), dtype=f32, device=dev),
+               torch.empty((b, h, nc, n_tiles, q), dtype=f32, device=dev),
                torch.empty((b, h, nc, n_tiles), dtype=f32, device=dev),
-               torch.empty((b, h, nc, q, n), dtype=f32, device=dev),
-               torch.empty((b, h, nc, q, n), dtype=f32, device=dev))
+               torch.empty((b, nc, n_tiles, q, n), dtype=f32, device=dev))
+    vec4 = p % 4 == 0 and n % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % 4 == 0 for st in t.stride()[:-1])
+        for t in (x, bm, cm, dy))
     strides = (ctypes.c_longlong * 22)(
         *x.stride()[:4], *dt.stride(), *ld.stride(), *bm.stride()[:3],
         *cm.stride()[:3], *dy.stride()[:4])
@@ -229,7 +238,7 @@ def mamba_chunk_scan_bwd_kernel(
     with torch.cuda.device(dev):
         err = lib.repro_torch_mamba_scan_bwd(
             *(t.data_ptr() for t in (x, dt, ld, bm, cm, dy, states, dh, *outs, *scratch)),
-            b, h, nc, q, p, n, strides, torch.cuda.current_stream(dev).cuda_stream,
+            b, h, nc, q, p, n, int(vec4), strides, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise KernelError(

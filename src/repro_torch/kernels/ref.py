@@ -41,7 +41,7 @@ from repro_torch.kernels.mcop_phase import NEG_INF as MCOP_NEG_INF
 from repro_torch.kernels.mcop_phase import triangle_index, unpack_triangle
 
 __all__ = ["NEG_INF", "attention_output_like", "flash_attention_bwd_plain",
-           "flash_attention_plain", "mamba_chunk_scan_bwd_plain", "mamba_chunk_scan_plain",
+           "flash_attention_lse_plain", "flash_attention_plain", "mamba_chunk_scan_bwd_plain", "mamba_chunk_scan_plain",
            "mcop_phase_plain", "mcop_phase_step_plain"]
 
 NEG_INF = -2.0**30
@@ -102,6 +102,40 @@ def flash_attention_plain(
         l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
         o = torch.matmul(p.view(b, hkv, rep * bq, sk), vf).view(b, h, bq, hd_v)
         out[:, :, q0:q1] = (o / l).to(q.dtype)
+    return out
+
+
+def flash_attention_lse_plain(
+    q: torch.Tensor,   # (B, H, Sq, hd)
+    k: torch.Tensor,   # (B, Hkv, Sk, hd)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Each row's log-sum-exp of the scaled scores over its visible keys,
+    ``(B, H, Sq)`` float32 in base e, 0 for a row with no visible key: the
+    ``L`` that B4 writes for its backward (``P = exp(scale q·k − L)``)."""
+    b, h, sq, hd = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kf = k.to(torch.float32)
+    k_pos = torch.arange(sk, device=q.device)
+    out = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, _PLAIN_BLOCK_Q):
+        q1 = min(sq, q0 + _PLAIN_BLOCK_Q)
+        bq = q1 - q0
+        qf = q[:, :, q0:q1].to(torch.float32).reshape(b, hkv, rep * bq, hd)
+        s = torch.matmul(qf, kf.transpose(-1, -2)).view(b, h, bq, sk) * scale
+        q_pos = torch.arange(q0, q1, device=q.device)
+        mask = torch.ones((bq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        lse = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
+        out[:, :, q0:q1] = torch.where(mask.any(-1), lse, 0.0)
     return out
 
 

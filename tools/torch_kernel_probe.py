@@ -6,6 +6,7 @@
     python3 tools/torch_kernel_probe.py wgmma-layout    # descriptor fields of wgmma operands
     python3 tools/torch_kernel_probe.py flash-variants  # B4 at the prefill shape, by design knob
     python3 tools/torch_kernel_probe.py flash-mla-variants  # B4 at MLA's heads, by warpgroups
+    python3 tools/torch_kernel_probe.py flash-bwd-variants  # B4-bwd by variant and warpgroups
     python3 tools/torch_kernel_probe.py mamba-passes    # B5's four passes, device time each
     python3 tools/torch_kernel_probe.py mcop-variants   # B1's warp body, by design knob
 
@@ -20,6 +21,15 @@ that change the arithmetic are timings only, their error is printed.
 ``flash-mla-variants`` does the same for the tensor-core variant at MLA's
 (hd, hd_v) = (192, 128), 4 warpgroups as built against 2, at deepseek-v2's
 prefill shape (bf16 4 x 128 x 6144, causal).
+``flash-bwd-variants`` builds ``csrc/flash_attention_bwd.cu`` as it is (the
+tensor-core variant at 1 warpgroup a block at (64, 64) and (128, 128), 2 at
+(192, 128)) and with the other count at each pair; prints ptxas's registers and spills of every
+tensor-core kernel; and times B4-bwd at zamba2-1.2b's training shape (bf16
+2 x 32 x 8192 x 64, causal, window 4096), qwen2-7b's (bf16 1 x 28/4 x 4160
+x 128, causal) and at MLA's (192, 128) (bf16 2 x 16 x 4096, causal) by
+variant (CUDA cores, tensor cores as built and with the other warpgroup
+count) in the order A, B, C, C, B, A, each result against the as-built
+tensor-core kernel's (max |diff| over the largest gradient).
 ``mamba-passes`` profiles one B5 call at the served prefill shape (f32 4 x
 64 heads x 32 chunks x 256, P = N = 64) and prints each pass's device time.
 ``mcop-variants`` builds ``csrc/mcop_sw.cu`` as it is and with one knob of
@@ -153,7 +163,8 @@ def flash_variants(probe: str = "flash-variants") -> dict:
         path = os.path.join(OUT, f"{probe}_{i}.cu")
         with open(path, "w") as f:
             f.write(text)
-        procs[name] = (path[:-3] + ".so", nvcc(path, path[:-3] + ".so", "-Xptxas", "-v"))
+        procs[name] = (path[:-3] + ".so", nvcc(path, path[:-3] + ".so", "-Xptxas", "-v",
+                                               "-I", os.path.dirname(FLASH_SRC)))
     libs, regs = {}, {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
@@ -167,7 +178,7 @@ def flash_variants(probe: str = "flash-variants") -> dict:
                       and mangled in line]
         lib = ctypes.CDLL(so)
         lib.repro_torch_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
         libs[name] = lib
@@ -186,7 +197,8 @@ def flash_variants(probe: str = "flash-variants") -> dict:
         out = torch.empty((b, s, h, hd_v), dtype=q.dtype, device="cuda").transpose(1, 2)
         strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
         err = libs[name].repro_torch_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, h, s, s, hd, hd_v,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, h, h, s, s, hd,
+            hd_v,
             1, -1 if window is None else window, 1.0 / hd**0.5, 1, 1,
             (ctypes.c_longlong * 12)(*strides), torch.cuda.current_stream().cuda_stream)
         if err:
@@ -205,6 +217,102 @@ def flash_variants(probe: str = "flash-variants") -> dict:
                      "max_err_over_tol": float(((got - want).abs() / tol).max())})
     return {"probe": probe, "shape": [b, h, h, s, s, hd, hd_v], "window": window,
             "rows": rows}
+
+
+BWD_SRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", "flash_attention_bwd.cu")
+BWD_SWAPPED = [(f"fb::tc::launch<{w}, {a}>", f"fb::tc::launch<{w}, {3 - a}>")
+               for w, a in (("64, 64", 1), ("128, 128", 1), ("192, 128", 2))]
+FLASH_BWD_BUILDS = {"as built": [], "the other warpgroup count": BWD_SWAPPED}
+# (B, H, Hkv, S, hd, hd_v, window), causal
+FLASH_BWD_SHAPES = {"zamba2-1.2b": (2, 32, 32, 8192, 64, 64, 4096),
+                    "qwen2-7b": (1, 28, 4, 4160, 128, 128, None),
+                    "mla (192, 128)": (2, 16, 16, 4096, 192, 128, None)}
+
+
+def flash_bwd_variants() -> dict:
+    """B4-bwd by variant and warpgroups a block, with ptxas's report."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    src = open(BWD_SRC).read()
+    procs = {}
+    for i, (name, edits) in enumerate(FLASH_BWD_BUILDS.items()):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"build {name!r}: {old!r} not in the source")
+            text = text.replace(old, new)
+        path = os.path.join(OUT, f"flash_bwd_{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        procs[name] = (path[:-3] + ".so", nvcc(path, path[:-3] + ".so", "-Xptxas", "-v",
+                                               "-I", os.path.dirname(BWD_SRC)))
+    libs, regs = {}, {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(log)
+        lines = log.splitlines()
+        regs[name] = [line.split("'")[1][:60] + ": " + " ".join(
+                          x.split("ptxas info    :")[-1].strip() for x in lines[i + 1:i + 4]
+                          if "Used" in x or "spill" in x)
+                      for i, line in enumerate(lines)
+                      if "Compiling entry" in line and "_tc" in line]
+        lib = ctypes.CDLL(so)
+        lib.repro_torch_flash_attention_bwd.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+        libs[name] = lib
+
+    def run(lib, variant, t):
+        q, k, v, o, lse, dout = t
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        delta = torch.empty_like(lse)
+        tensors = (q, k, v, o, dout, dq, dk, dv)
+        strides = [st for x in tensors for st in x.stride()[:3]]
+        b, h, s, hd = q.shape
+        window = t_window[0]
+        err = lib.repro_torch_flash_attention_bwd(
+            *(x.data_ptr() for x in tensors), lse.data_ptr(), delta.data_ptr(), b, h,
+            k.shape[1], s, s, hd, v.shape[3], 1, -1 if window is None else window,
+            1.0 / hd**0.5, 1, variant, (ctypes.c_longlong * 24)(*strides),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"CUDA error {err}")
+        return dq, dk, dv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t_window = [None]
+    shapes = []
+    for label, (b, h, hkv, s, hd, hd_v, window) in FLASH_BWD_SHAPES.items():
+        def draw(heads, width):
+            return torch.randn((b, s, heads, width), generator=gen,
+                               device="cuda").bfloat16().transpose(1, 2)
+
+        q, k, v, dout = draw(h, hd), draw(hkv, hd), draw(hkv, hd_v), draw(h, hd_v)
+        o, lse = flash_attention_kernel(q, k, v, causal=True, window=window, return_lse=True)
+        t, t_window[0] = (q, k, v, o, lse, dout), window
+        built = 2 if hd == 192 else 1
+        runs = {"cuda cores": (libs["as built"], 0),
+                f"tensor cores ({built} warpgroups, as built)": (libs["as built"], 1),
+                f"tensor cores ({3 - built} warpgroups)": (libs["the other warpgroup count"], 1)}
+        want = run(*runs[f"tensor cores ({built} warpgroups, as built)"], t)
+        names = list(runs)
+        times = {n: [] for n in names}
+        for order in (names, names[::-1]):
+            for n in order:
+                times[n].append(cuda_ms(lambda: run(*runs[n], t), reps=2))
+        rows = []
+        for n in names:
+            got = run(*runs[n], t)
+            rows.append({"variant": n, "ms": times[n], "max_diff_over_max": max(
+                float((g.float() - w.float()).abs().max() / w.float().abs().max())
+                for g, w in zip(got, want))})
+        shapes.append({"shape": label, "dims": [b, h, hkv, s, s, hd, hd_v], "window": window,
+                       "rows": rows})
+        del q, k, v, dout, o, lse, want
+        torch.cuda.empty_cache()
+    return {"probe": "flash-bwd-variants", "registers": regs, "shapes": shapes}
 
 
 def mamba_passes() -> dict:
@@ -342,8 +450,8 @@ def mcop_variants() -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("probes", nargs="+", choices=(
-        "wgmma-layout", "flash-variants", "flash-mla-variants", "mamba-passes",
-        "mcop-variants"))
+        "wgmma-layout", "flash-variants", "flash-mla-variants", "flash-bwd-variants",
+        "mamba-passes", "mcop-variants"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
@@ -352,6 +460,7 @@ def main() -> int:
     print(gpu_line(), flush=True)
     run = {"wgmma-layout": wgmma_layout, "flash-variants": flash_variants,
            "flash-mla-variants": lambda: flash_variants("flash-mla-variants"),
+           "flash-bwd-variants": flash_bwd_variants,
            "mamba-passes": mamba_passes, "mcop-variants": mcop_variants}
     for name in args.probes:
         print(json.dumps(run[name]()), flush=True)
