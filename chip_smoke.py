@@ -47,7 +47,9 @@ one JSON object per line:
                       B4-bwd at zamba2-1.2b's training shape
                       (bf16, 2 x 32 heads x 8192, window 4096; timed beside
                       SDPA's forward + backward), qwen2-7b's GQA 28/4 at
-                      (128, 128), odd and padded lengths, MLA's (192, 128)
+                      (128, 128) (also at 8192 tokens, and a sharded
+                      rank's 14/2, as the distributed phases run them; B4
+                      too), odd and padded lengths, MLA's (192, 128)
                       and (24, 16) in f32 and bf16, each launching the
                       variant its dtype and widths call for (tensor cores:
                       bf16 at (64, 64), (128, 128) and (192, 128)); B5-bwd at
@@ -109,6 +111,25 @@ one JSON object per line:
                       in f32 at 4160 tokens on the card (kernels) and on
                       the CPU (plain versions): loss and gradient norm
                       within 1e-4 relative; B4-bwd on its CUDA-core variant.
+   ``train_sharded`` — qwen2-7b at published widths, 4 of its 28 layers,
+                      trained sharded (bf16, 2 x 8192 tokens, 3 steps) on a
+                      (data 2, model 2) mesh of four ranks run as threads of
+                      one child process over PyTorch's threaded process
+                      group: every rank launches B4 2 x 4 and B4-bwd 4 times a
+                      step on its 14 query / 2 kv heads; losses within 5e-2,
+                      parameters after step 1 within 0.15, gradient norms
+                      within 5e-3 relative and each leaf's step-1 change
+                      within 0.3 of the unsharded change, against the same
+                      steps unsharded on the card; an f32 replay at reduced
+                      width and 4160 tokens within 1e-5 (each leaf's
+                      change within 1e-2); tokens/s,
+                      peak memory, collective calls and bytes a rank and step.
+   ``pipeline``     — qwen2-7b's 4 blocks through ``runtime.pipeline_apply``
+                      on (pod 2, data 2), two stages of two, x (8, 8192, 3584)
+                      bf16, n_micro 1, 2, 4: output and gradients against the
+                      blocks in sequence on the card (within 2^-5 of the
+                      largest value), B4 and B4-bwd launches a rank, forward
+                      time a slot beside the predicted bubble.
 8. ``min_cut``      — the per-phase kernel (B3) against its plain version on
                       single phases of 6-1024 vertices ((s, t) equal, cuts to
                       ``rtol=1e-5``), then ``kernels.ops.mcop_min_cut`` on the
@@ -137,7 +158,9 @@ it and read just after: phases 4-5 (the broker tick: B1, B2), phase
 launches of its passes, counted once), each model of phase
 ``serve_families`` (B4 once per attention layer of a prefill, no other
 kernel), each step of phase ``train`` (B4, B4-bwd, B5, B5-bwd) and phase 8 (the per-phase tier: B3 once per MinCutPhase).  A
-kernel of a path that was not launched there fails the run; the server of phase 9 runs B1 in its own
+kernel of a path that was not launched there fails the run; in phases
+``train_sharded`` and ``pipeline`` each rank keeps its own counts (B4 and B4-bwd),
+set to 0 before each step or run and read after it; the server of phase 9 runs B1 in its own
 process, so the phase fails unless its tick reports show solves.  Then a
 ``kernel_work`` line counts the work of the MCOP kernels' timed shapes
 (absorb steps, row traffic, B3's chain and bound terms; computed from the
@@ -184,6 +207,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.append(os.path.join(ROOT, "tools"))
+
+import torch_dist_ranks as ranks  # noqa: E402  (a rank's work in train_sharded, pipeline)
 
 RTOL = 1e-5          # cut tolerance: f32 sums taken in different orders
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -217,7 +243,10 @@ BROKER_PATH_KERNELS = ("mcop_stoer_wagner_kernel", "mcop_fused_solve_kernel")
 # of 64, a 4096-token window, 8192-token prompts, a wave of 4) and gives the
 # kernel's line; then GQA at hd 128, f32 over 4096-key rows, and odd
 # lengths with a window on full attention, in f32 and on the tensor cores,
-# odd lengths with more keys than queries at hd 128, and a narrow bf16 head.
+# odd lengths with more keys than queries at hd 128, a narrow bf16 head, and
+# qwen2-7b's heads at 8192 tokens as the distributed phases hand them to
+# B4: a rank's 14 q / 2 kv heads in train_sharded, the pipeline's 28 / 4 over
+# a stage's largest microbatch.
 # Layout "model": transpose(1, 2) views of (B, S, H, hd) tensors, as
 # chunked_attention hands them over; "heads": contiguous (B, H, S, hd).  The
 # bf16 cases at hd 64 and 128 must run the tensor-core variant, the others
@@ -231,6 +260,8 @@ FLASH_CHECKS = (
     (2, 4, 2, 1000, 1337, 64, False, 300, "bfloat16", "model"),
     (1, 8, 2, 333, 517, 128, True, 100, "bfloat16", "heads"),
     (2, 4, 2, 1000, 1337, 32, True, 300, "bfloat16", "model"),
+    (1, 14, 2, 8192, 8192, 128, True, None, "bfloat16", "model"),
+    (4, 28, 4, 8192, 8192, 128, True, None, "bfloat16", "model"),
 )
 # (atol, rtol) by dtype.  bf16: both sides round an f32 result to bf16, so
 # they may differ by one bf16 step of the output, at most 2^-7 |o|, plus
@@ -1694,7 +1725,9 @@ def check_mamba(rng, case, *, measure: bool) -> dict:
 # timed for the kernels line beside SDPA's forward + backward; then
 # qwen2-7b's GQA 28/4 at (128, 128) over the train_replay length, odd and
 # padded lengths with a window on full attention in f32 and bf16, MLA's
-# (192, 128) and the reduced pair (24, 16) in f32 and bf16, and a narrow head.
+# (192, 128) and the reduced pair (24, 16) in f32 and bf16, a narrow head,
+# and qwen2-7b's heads at 8192 tokens as the distributed phases hand them to
+# B4-bwd: a rank's 14 q / 2 kv heads (train_sharded), 28 / 4 (pipeline).
 FLASH_BWD_CHECKS = (
     (2, 32, 32, 8192, 8192, 64, True, 4096, "bfloat16", "model", 64),
     (1, 28, 4, 4160, 4160, 128, True, None, "bfloat16", "model", 128),
@@ -1707,6 +1740,8 @@ FLASH_BWD_CHECKS = (
     (2, 4, 4, 4200, 4200, 24, True, None, "float32", "model", 16),
     (2, 4, 4, 1000, 1337, 24, False, 300, "bfloat16", "heads", 16),
     (1, 8, 2, 333, 517, 32, True, 100, "bfloat16", "heads", 32),
+    (1, 14, 2, 8192, 8192, 128, True, None, "bfloat16", "model", 128),
+    (1, 28, 4, 8192, 8192, 128, True, None, "bfloat16", "model", 128),
 )
 # max |kernel - plain| of each gradient over its max |plain|.  f32: sums in
 # another order over up to 8192 keys, and P = exp(s - L) against the plain
@@ -3045,6 +3080,398 @@ def phase_serve_broker() -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# Phases train_sharded and pipeline: distributed training on one card
+# ----------------------------------------------------------------------
+
+# qwen2-7b at published widths, 4 of its 28 layers, trained sharded over
+# (data 2, model 2) and held against the same steps unsharded on the card,
+# with the reference test's bounds (tests/test_distributed.py: loss within
+# 5e-2, parameters after step 1 within 0.15) and two limits set from the
+# readings of sound runs on an H100: every step's gradient norm within
+# 5e-3 relative (read 2.42e-3), and each leaf's change in step 1 within 0.3
+# of the unsharded change in norm (read 0.223; a lost update reads 1.  The
+# bf16 parameters move by about one bf16 step in step 1, lr 1e-4 against
+# weights of ~0.02, so an element whose gradient is at the rounding of the
+# bf16 sums moves a step either way).  Then a reduced-width f32 replay of
+# the same, losses and gradient norms within 1e-5 relative (f32 sums in
+# another order through two layers, their backward and the all-reduced
+# norm), each leaf's change within 1e-2 (read 1.4e-4; the CPU tests' bound
+# for a float32 step).  The unsharded run takes the model's vocab-chunked
+# loss, which never holds the (2, 8192, 152064) logits beside the whole
+# model's states.
+TRAIN_SHARDED = {"arch": "qwen2-7b", "layers": 4, "seq_len": 8192, "global_batch": 2,
+                 "steps": 3, "mesh": (2, 2), "seed": 0, "lr": 1e-4, "ref_vocab_chunk": 32768,
+                 "timeout": 420,
+                 "loss_tol": 5e-2, "param_tol": 0.15, "grad_norm_rtol": 5e-3, "change_rtol": 0.3,
+                 "replay": {"seq_len": 4160, "global_batch": 2, "steps": 3, "rtol": 1e-5,
+                            "change_rtol": 1e-2,
+                            "widths": dict(d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+                                           d_ff=128, vocab_size=256)}}
+# qwen2-7b's blocks at published widths, two stages of two over (pod 2,
+# data 2); x (8, 8192, 3584) bf16 so each data shard of 4 splits into 1, 2
+# and 4 microbatches.  Output and the gradients of its sum (x and every
+# stage parameter) against the 4 blocks in sequence on the card, each
+# within tol x the reference's largest magnitude: bf16 products whose
+# matrix shapes differ between a microbatch and the whole batch.
+PIPELINE = {"arch": "qwen2-7b", "blocks": 4, "mesh": (2, 2), "batch": 8, "seq_len": 8192,
+            "n_micro": (1, 2, 4), "seed": 0, "tol": 2.0**-5, "timeout": 300}
+
+
+def _thread_world(kind: str, spec: dict, world: int, out_path: str) -> None:
+    """A child process: ``world`` ranks as threads over the threaded process
+    group, each on ``cuda:0``; their results (or the first failure) go to
+    ``out_path``."""
+    import threading
+    import traceback
+
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.multi_threaded_pg import (
+        ProcessLocalGroup, _install_threaded_pg)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks.install_rank_counts()
+    shared = WORLD_SETUP[kind](spec)
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    _install_threaded_pg()
+    store = dist.HashStore()
+    results, failures = [None] * world, []
+
+    def rank_main(rank: int) -> None:
+        try:
+            dist.init_process_group("threaded", rank=rank, world_size=world, store=store)
+            torch.cuda.set_device(0)
+            results[rank] = WORLD_RANK[kind](rank, world, spec, shared)
+        except BaseException as err:  # the phase fails; the other ranks are woken
+            failures.append(f"rank {rank}: {traceback.format_exc()}")
+            ProcessLocalGroup.exception_handle(err)
+
+    threads = [threading.Thread(target=rank_main, args=(r,), name=f"rank{r}")
+               for r in range(world)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(spec["timeout"])
+    if any(t.is_alive() for t in threads):
+        failures.append("a rank did not finish in time")
+    out = {"results": results, "failures": failures}
+    if not failures:
+        out["after"] = WORLD_AFTER[kind](spec, shared, results)
+    torch.save(out, out_path)
+    sys.stdout.flush()
+    os._exit(0)  # threads of a failed world may still wait in a collective
+
+
+def run_world(kind: str, spec: dict, world: int) -> dict:
+    """Run phase ``kind``'s ranks as threads of one child process on the
+    card (the kernels are built; the child loads them) and return what the
+    child saved.  The child is a plain ``subprocess`` (a ``multiprocessing``
+    child would leave its resource tracker behind), waited for, or killed
+    and reaped."""
+    import pickle
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix=f"smoke_{kind}_")
+    args, out_path = os.path.join(tmp, "args.pkl"), os.path.join(tmp, "world.pt")
+    with open(args, "wb") as f:
+        pickle.dump((kind, spec, world, out_path), f)
+    code = ("import pickle, sys; import chip_smoke as c; "
+            "c._thread_world(*pickle.load(open(sys.argv[1], 'rb')))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable, "-c", code, args], env=env, cwd=ROOT)
+    try:
+        proc.wait(timeout=spec["timeout"] + 120)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"{kind}: the world's process ended with {proc.returncode}")
+    out = torch.load(out_path, weights_only=False)
+    if out["failures"]:
+        raise AssertionError(f"{kind}: " + "\n".join(out["failures"]))
+    return out
+
+
+def sharded_config(spec: dict, *, replay: bool = False):
+    from repro_torch.configs import get_config, reduce_config
+
+    if replay:
+        return reduce_config(get_config(spec["arch"]), dtype="float32",
+                             **spec["replay"]["widths"])
+    return ranks.depth_config(spec["arch"], spec["layers"])
+
+
+def setup_train_sharded(spec: dict) -> dict:
+    """The full model (seeded on the card, kept on the host while the ranks
+    train: the card's memory is theirs) and the batches every rank shares:
+    the sharded run takes its shards from these, the unsharded reference
+    runs on them afterwards; and the same for the f32 replay."""
+    from repro_torch.models.transformer import Model
+
+    out = {}
+    for tag, replay in (("full", False), ("replay", True)):
+        cfg = sharded_config(spec, replay=replay)
+        r = spec["replay"] if replay else spec
+        params = Model(cfg, device=DEVICE).init(spec["seed"])
+        out[tag] = {"cfg": cfg,
+                    "params": {k: p.detach().cpu() for k, p in params.named_parameters()},
+                    "batches": ranks.train_batches(cfg, r["seq_len"], r["global_batch"],
+                                               r["steps"], spec["seed"])}
+    return out
+
+
+def rank_train_sharded(rank: int, world: int, spec: dict, shared: dict) -> dict:
+    """One rank: its shards of the full model, then the steps."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import shard_params
+
+    mesh = make_mesh(spec["mesh"], ("data", "model"), device=DEVICE)
+    out = {}
+    for tag in ("full", "replay"):
+        s = shared[tag]
+        params = ranks.module_with(s["cfg"], shard_params(s["params"], mesh))
+        if tag == "full":
+            torch.cuda.reset_peak_memory_stats()
+        run = ranks.train_run(s["cfg"], params, s["batches"], spec["lr"], mesh=mesh,
+                              step1="keep" if rank == 0 else "join")
+        if tag == "full":
+            run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[tag] = run
+        del params
+    return out
+
+
+def step1_changes(before: dict, got: dict, want: dict) -> dict:
+    """The parameters after step 1, sharded (``got``) against unsharded
+    (``want``), both from ``before``: the largest difference
+    (``param_step1``); each leaf's change against the unsharded change,
+    ||got - want|| / ||want - before|| over the leaves the unsharded step
+    moved (``change_rel``: 1 where a leaf's update was lost); and the
+    leaves the unsharded step left as they were (a bf16 element moves only
+    if lr times its update reaches half a step of bf16) that the sharded
+    step moved (``still_moved``)."""
+    err, rel, worst, still, moved = 0.0, 0.0, None, 0, 0
+    for k, b0 in before.items():
+        b0, g1, w1 = (t.detach().to(DEVICE, torch.float32) for t in (b0, got[k], want[k]))
+        err = max(err, float((g1 - w1).abs().max()))
+        change = float((w1 - b0).norm())
+        if change > 0:
+            if float((g1 - w1).norm()) / change > rel:
+                rel, worst = float((g1 - w1).norm()) / change, k
+        else:
+            still += 1
+            moved += int(not torch.equal(g1, b0))
+        del b0, g1, w1
+    return {"param_step1": err, "change_rel": rel, "change_rel_leaf": worst,
+            "still_leaves": still, "still_moved": moved}
+
+
+def after_train_sharded(spec: dict, shared: dict, results: list) -> dict:
+    """The unsharded reference runs on the card (the ranks are done), and
+    the sharded results are held to it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    for tag in ("replay", "full"):
+        s = shared[tag]
+        torch.cuda.reset_peak_memory_stats()
+        on_card = {k: t.to(DEVICE) for k, t in s["params"].items()}
+        ref = ranks.train_run(s["cfg"], ranks.module_with(s["cfg"], on_card), s["batches"],
+                              spec["lr"], step1="keep",
+                              vocab_chunk=spec["ref_vocab_chunk"] if tag == "full" else 0)
+        ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        got = results[0][tag]
+        errs = {"loss": max(abs(a["loss"] - b["loss"]) for a, b in zip(got["steps"], ref["steps"])),
+                "grad_norm_rel": max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                                     for a, b in zip(got["steps"], ref["steps"]))}
+        errs.update(step1_changes(s["params"], got["step1"], ref["step1"]))
+        got["step1"] = ref["step1"] = None
+        if tag == "replay":
+            errs["loss_rel"] = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                                   for a, b in zip(got["steps"], ref["steps"]))
+        out[tag] = {"errs": errs, "ref_steps": [{k: st[k] for k in ("loss", "grad_norm", "seconds")}
+                                                for st in ref["steps"]],
+                    "ref_peak_gb": ref["peak_gb"]}
+        del ref, on_card
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_sharded() -> dict:
+    """qwen2-7b trained sharded on the card (TRAIN_SHARDED): four ranks of
+    a (data 2, model 2) mesh as threads of one child process, over the
+    threaded process group (gloo's functional collectives fail on CUDA
+    tensors and NCCL takes one rank a card).  Every rank runs B4 on its 14
+    query / 2 kv heads (2 a layer and step: the forward and remat's
+    recompute) and B4-bwd once a layer and step; the steps are held to the
+    unsharded run on the card, and the f32 replay at 1e-5."""
+    spec = TRAIN_SHARDED
+    world = spec["mesh"][0] * spec["mesh"][1]
+    t0 = time.perf_counter()
+    out = run_world("train_sharded", spec, world)
+    seconds = time.perf_counter() - t0
+    results, after = out["results"], out["after"]
+    layers = spec["layers"]
+    want = {"flash_attention_kernel": 2 * layers, "flash_attention_kernel.tensor_cores": 2 * layers,
+            "flash_attention_kernel.cuda_cores": 0, "flash_attention_bwd_kernel": layers,
+            "flash_attention_bwd_kernel.tensor_cores": layers,
+            "flash_attention_bwd_kernel.cuda_cores": 0}
+    r_layers = sharded_config(spec, replay=True).n_layers
+    want_replay = {"flash_attention_kernel": 2 * r_layers,
+                   "flash_attention_kernel.tensor_cores": 0,
+                   "flash_attention_kernel.cuda_cores": 2 * r_layers,
+                   "flash_attention_bwd_kernel": r_layers,
+                   "flash_attention_bwd_kernel.tensor_cores": 0,
+                   "flash_attention_bwd_kernel.cuda_cores": r_layers}
+    for rank, res in enumerate(results):
+        for tag, expect in (("full", want), ("replay", want_replay)):
+            for i, st in enumerate(res[tag]["steps"]):
+                if st["launches"] != expect:
+                    raise AssertionError(f"train_sharded {tag}: rank {rank} step {i} launched "
+                                         f"{st['launches']}, expected {expect}")
+    errs, rerrs = after["full"]["errs"], after["replay"]["errs"]
+    if not (errs["loss"] <= spec["loss_tol"] and errs["param_step1"] <= spec["param_tol"]
+            and errs["grad_norm_rel"] <= spec["grad_norm_rtol"]
+            and errs["change_rel"] <= spec["change_rtol"] and errs["still_moved"] == 0):
+        raise AssertionError(f"train_sharded: sharded vs unsharded {errs}")
+    r = spec["replay"]
+    if not (rerrs["loss_rel"] <= r["rtol"] and rerrs["grad_norm_rel"] <= r["rtol"]
+            and rerrs["change_rel"] <= r["change_rtol"] and rerrs["still_moved"] == 0):
+        raise AssertionError(f"train_sharded replay: sharded vs unsharded {rerrs}")
+    steps = results[0]["full"]["steps"]
+    losses = [st["loss"] for st in steps]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train_sharded: losses {losses}")
+    tokens = spec["seq_len"] * spec["global_batch"]
+    measured = steps[1:]   # step 0 warms up
+    step_s = [max(res["full"]["steps"][i]["seconds"] for res in results)
+              for i in range(1, len(steps))]
+    return {"phase": "train_sharded", "backend": "threaded (4 ranks as threads on cuda:0)",
+            "arch": spec["arch"], "layers": layers, "mesh": {"data": spec["mesh"][0],
+                                                              "model": spec["mesh"][1]},
+            "seq_len": spec["seq_len"], "global_batch": spec["global_batch"],
+            "losses": losses, "ref_losses": [st["loss"] for st in after["full"]["ref_steps"]],
+            "grad_norms": [st["grad_norm"] for st in steps],
+            "step_seconds": [max(res["full"]["steps"][i]["seconds"] for res in results)
+                             for i in range(len(steps))],
+            "ref_step_seconds": [st["seconds"] for st in after["full"]["ref_steps"]],
+            "tokens_per_s": tokens * len(measured) / sum(step_s),
+            "steps_per_s": len(measured) / sum(step_s),
+            "peak_gb_process": max(res["full"]["peak_gb"] for res in results),
+            "state_gb_per_rank": [res["full"]["state_bytes"] / 1e9 for res in results],
+            "ref_peak_gb": after["full"]["ref_peak_gb"],
+            "launches_per_rank_step": want,
+            "collectives_per_rank_step": measured[-1]["collectives"],
+            "errors": errs, "bounds": {"loss": spec["loss_tol"], "param_step1": spec["param_tol"],
+                                       "grad_norm_rel": spec["grad_norm_rtol"],
+                                       "change_rel": spec["change_rtol"], "still_moved": 0},
+            "replay": {"seq_len": r["seq_len"], "losses": [
+                st["loss"] for st in results[0]["replay"]["steps"]],
+                "ref_losses": [st["loss"] for st in after["replay"]["ref_steps"]],
+                "errors": rerrs, "rtol": r["rtol"], "change_rtol": r["change_rtol"],
+                "launches_per_rank_step": want_replay},
+            "main_path_launches": {
+                "flash_attention_kernel": sum(st["launches"]["flash_attention_kernel"]
+                                              for res in results for st in res["full"]["steps"]),
+                "flash_attention_bwd_kernel": sum(
+                    st["launches"]["flash_attention_bwd_kernel"]
+                    for res in results for st in res["full"]["steps"])},
+            "seconds": seconds}
+
+
+
+def after_pipeline(spec: dict, shared: dict, results: list) -> dict:
+    """The blocks in sequence on the card: output and gradients of its sum."""
+    import gc
+
+    stage_fn = ranks.block_stage(ranks.block_call(shared["cfg"]))
+    leaves = {k: v.clone().requires_grad_(True) for k, v in shared["stacked"].items()}
+    x = shared["x"].clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = stage_fn(leaves, x)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    n_stages = spec["mesh"][0]
+    ref_p = {k: g.reshape(n_stages, -1, *g.shape[1:]) for k, g in
+             ((k, v.grad) for k, v in leaves.items())}
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()) / float(want.float().abs().max())
+
+    errs = {}
+    for n_micro, res in results[0].items():
+        errs[n_micro] = {"out": rel(res["out"], y), "x_grad": rel(res["x_grad"], x.grad),
+                         "p_grads": max(rel(res["p_grads"][k], ref_p[k]) for k in ref_p)}
+        for k in ("out", "x_grad", "p_grads"):
+            res[k] = None
+    del leaves, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"errors": errs, "sequential_seconds": seq_s}
+
+
+def phase_pipeline() -> dict:
+    """qwen2-7b's blocks through ``pipeline_apply`` (PIPELINE): four ranks of
+    a (pod 2, data 2) mesh as threads of one child process on the card,
+    each running its stage's two blocks on its local microbatches (B4 at
+    8192 tokens: once a block and microbatch in the forward, again in
+    remat's recompute), against the blocks in sequence on the card."""
+    spec = PIPELINE
+    world = spec["mesh"][0] * spec["mesh"][1]
+    t0 = time.perf_counter()
+    out = run_world("pipeline", spec, world)
+    seconds = time.perf_counter() - t0
+    results, after = out["results"], out["after"]
+    n_stages, blocks = spec["mesh"][0], spec["blocks"]
+    per_stage = blocks // n_stages
+    rows = []
+    for n_micro in spec["n_micro"]:
+        err = after["errors"][n_micro]
+        if not max(err.values()) <= spec["tol"]:
+            raise AssertionError(f"pipeline n_micro={n_micro}: {err} over {spec['tol']}")
+        # every rank: its blocks, once a microbatch forward and once again
+        # in the backward's recompute; B4-bwd once a block and microbatch
+        want = {"flash_attention_kernel": 2 * per_stage * n_micro,
+                "flash_attention_bwd_kernel": per_stage * n_micro}
+        for rank, res in enumerate(results):
+            got = {k: res[n_micro]["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"pipeline n_micro={n_micro}: rank {rank} launched {got}, "
+                                     f"expected {want}")
+        slots = n_micro + n_stages - 1
+        total = max(res[n_micro]["seconds"] for res in results)
+        fwd = max(res[n_micro]["forward_seconds"] for res in results)
+        rows.append({"n_micro": n_micro, "slots": slots,
+                     "bubble_predicted": (n_stages - 1) / slots,
+                     "forward_seconds": fwd, "seconds": total,
+                     "forward_ms_per_slot": fwd / slots * 1e3,
+                     "launches_per_rank": want, "errors": err,
+                     "collectives_per_rank": results[0][n_micro]["collectives"]})
+    return {"phase": "pipeline", "backend": "threaded (4 ranks as threads on cuda:0)",
+            "arch": spec["arch"], "blocks": blocks, "stages": n_stages,
+            "mesh": dict(zip(("pod", "data"), spec["mesh"])),
+            "x": [spec["batch"], spec["seq_len"], "d_model", "bfloat16"], "tol": spec["tol"],
+            "tol_meaning": "max |pipeline - sequential| / max |sequential|, bf16",
+            "runs": rows, "sequential_seconds": after["sequential_seconds"],
+            "main_path_launches": {
+                k: sum(res[n]["launches"][k] for res in results for n in spec["n_micro"])
+                for k in ("flash_attention_kernel", "flash_attention_bwd_kernel")},
+            "seconds": seconds}
+
+
+WORLD_SETUP = {"train_sharded": setup_train_sharded, "pipeline": ranks.setup_pipeline}
+WORLD_RANK = {"train_sharded": rank_train_sharded, "pipeline": ranks.rank_pipeline}
+WORLD_AFTER = {"train_sharded": after_train_sharded, "pipeline": after_pipeline}
+
+
 def child_processes() -> list[str]:
     """The command lines of this process's living children (Linux ``/proc``)."""
     left = []
@@ -3146,6 +3573,11 @@ def main() -> int:
     train_replay = phase_train_replay()
     train_replay["seconds"] = time.perf_counter() - t0
     emit(train_replay)
+    torch.cuda.empty_cache()
+    sharded = phase_train_sharded()  # each rank resets and reads its counters around each step
+    emit(sharded)
+    piped = phase_pipeline()  # each rank resets and reads its counters around each run
+    emit(piped)
 
     t0 = time.perf_counter()
     min_cut = phase_min_cut(rng)  # resets and reads the counters around its path
@@ -3172,6 +3604,8 @@ def main() -> int:
             timed_entry = {**timed_entry, "launches_serve_families": families["flash_launches"],
                            "launches_by_model": {m["arch"]: m["flash_launches"]
                                                  for m in families["models"]},
+                           "launches_train_sharded": sharded["main_path_launches"][name],
+                           "launches_pipeline": piped["main_path_launches"][name],
                            "mla": {k: mla.get(k) for k in (
                                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms", "library_refused", "tflops",
@@ -3185,7 +3619,8 @@ def main() -> int:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "shape", "tflops", "bound_share")},
             **{k: timed_entry[k] for k in ("variant", "bound_f32_ms", "launches_serve_families",
-                                           "launches_by_model", "mla") if k in timed_entry},
+                                           "launches_by_model", "launches_train_sharded",
+                                           "launches_pipeline", "mla") if k in timed_entry},
         })
     for name, path, replaces in (
         ("flash_attention_bwd_kernel", "flash_attention_bwd", "src/repro/models/attention.py:177"),
@@ -3199,6 +3634,9 @@ def main() -> int:
             "replaces": replaces, "tpu_kernel": None,
             "launches": trained["main_path_launches"][name],
             "launches_per_step": trained["launches_per_step"][name],
+            **({"launches_train_sharded": sharded["main_path_launches"][name],
+                "launches_pipeline": piped["main_path_launches"][name]}
+               if name == "flash_attention_bwd_kernel" else {}),
             **({"variant": timed_entry["variant"],
                 "launches_by_variant": {v: trained["main_path_launches"][key]
                                         for v, key in BWD_VARIANT_KEYS.items()}}

@@ -24,6 +24,13 @@ words and reinterpreted on restore, as the JAX package stores them.
 * **Restore onto a device** — ``restore(step, tree_like, device=)`` puts
   each leaf on ``device`` (default: the like-leaf's), in the like-leaf's
   dtype; shapes and the leaf count must match, and checksums are verified.
+* **Sharded leaves** — a DTensor leaf is saved whole: every rank joins
+  its gather (``full_tensor``) and rank 0 alone writes, so the files are
+  the same as an unsharded save's and either package reads them.
+  ``restore(..., shardings=, mesh=)`` places each leaf on ``mesh`` by its
+  placements (a tree of the like-tree's structure, as
+  ``runtime.sharding.param_shardings`` gives), whatever mesh it was saved
+  from: the JAX package's restore onto a different mesh.
 * **Retention** — ``keep`` limits how many recent steps survive.
 """
 
@@ -39,6 +46,10 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.runtime.sharding import place
 
 __all__ = ["CheckpointStore", "CheckpointMeta"]
 
@@ -69,11 +80,17 @@ def _unflatten_into(tree: Any, leaves: list, prefix: str = "") -> Any:
 
 def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """(the leaf's bytes as a numpy array np.save can write, dtype name)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu").contiguous()
     name = _TORCH_NAMES[t.dtype]
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16).copy(), name
     return t.numpy().copy(), name
+
+
+def _sharded(tree: Any) -> bool:
+    return any(isinstance(leaf, DTensor) for _, leaf in flatten(tree))
 
 
 def _to_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
@@ -115,12 +132,27 @@ class CheckpointStore:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree: Any, *, extra: dict | None = None) -> str:
-        """Synchronous atomic save of a nested dict of tensors."""
-        return self._write(step, self._snapshot(tree), extra or {})
+        """Synchronous atomic save of a nested dict of tensors.  With DTensor
+        leaves every rank must call it; rank 0 writes, and every rank
+        returns once the step is on disk."""
+        leaves = self._snapshot(tree)
+        final = self._step_dir(step)
+        if self._writer(tree):
+            final = self._write(step, leaves, extra or {})
+        if _sharded(tree):
+            dist.barrier()
+        return final
+
+    @staticmethod
+    def _writer(tree: Any) -> bool:
+        return not _sharded(tree) or dist.get_rank() == 0
 
     def save_async(self, step: int, tree: Any, *, extra: dict | None = None) -> None:
-        """Snapshot to host now; write in the background."""
+        """Snapshot to host now; write in the background (with DTensor
+        leaves, on rank 0; every rank joins the snapshot's gathers)."""
         leaves = self._snapshot(tree)
+        if not self._writer(tree):
+            return
         t = threading.Thread(target=self._write, args=(step, leaves, extra or {}), daemon=True)
         t.start()
         with self._lock:
@@ -169,11 +201,18 @@ class CheckpointStore:
 
     # ------------------------------------------------------------------
     def restore(self, step: int, tree_like: Any, *, device: str | torch.device | None = None,
-                verify: bool = True) -> tuple[Any, dict]:
+                verify: bool = True, shardings: Any | None = None,
+                mesh=None) -> tuple[Any, dict]:
         """A tree of ``tree_like``'s structure holding step ``step``'s
         leaves, each in its like-leaf's dtype on ``device`` (default: the
-        like-leaf's device).  Raises on an incomplete checkpoint, a leaf
-        count or shape that differs, or (``verify``) a checksum mismatch."""
+        like-leaf's device).  ``shardings`` (a tree of placements of the
+        same structure) makes each leaf a DTensor on ``mesh`` with those
+        placements; every rank reads the whole leaf and keeps its shards.
+        Raises on an incomplete checkpoint, a leaf count or shape that
+        differs, or (``verify``) a checksum mismatch."""
+        if shardings is not None and mesh is None:
+            raise ValueError("restore(shardings=...) needs the mesh to place them on")
+        placed = None if shardings is None else [p for _, p in flatten(shardings)]
         d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -191,7 +230,10 @@ class CheckpointStore:
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"leaf {i} shape {arr.shape} != expected {tuple(leaf.shape)}")
             t = _to_tensor(arr, rec["dtype"])
-            out.append(t.to(device=leaf.device if device is None else device, dtype=leaf.dtype))
+            t = t.to(device=leaf.device if device is None else device, dtype=leaf.dtype)
+            if placed is not None:
+                t = place(t, mesh, placed[i])
+            out.append(t)
         return _unflatten_into(tree_like, out), manifest["extra"]
 
     def restore_latest(self, tree_like: Any, **kw) -> tuple[int, Any, dict]:

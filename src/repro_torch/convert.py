@@ -38,6 +38,7 @@ __all__ = [
     "model_params_from_jax",
     "jax_leaf_ndim",
     "jax_leaf_groups",
+    "jax_leaf_shapes",
     "weight_decay_mask",
 ]
 
@@ -227,6 +228,29 @@ def jax_leaf_groups(params) -> dict:
         else:
             out[k] = ".".join([head, *rest[_STACKED.get(head, 0):]])
     return out
+
+
+def jax_leaf_shapes(params) -> dict:
+    """``{name: (the JAX leaf's path, the JAX leaf's shape)}`` for a model's
+    parameters (an ``nn.Module`` or a ``{name: tensor}`` dict): the path of
+    :func:`jax_leaf_groups` with its keys joined by ``/`` (the sharding
+    rules' form), and the shape of the leaf the parameter is a slice of:
+    the layer counts of its stack (``blocks.{i}``: the number of blocks;
+    ``mamba.{g}.{i}``: groups, then layers a group) followed by the
+    parameter's own shape.  A parameter no layer stack holds has its own
+    shape."""
+    named = list(_named(params))
+    counts: dict = {}
+    for k, _ in named:
+        head, *rest = k.split(".")
+        n = _STACKED.get(head, 0)
+        if n:
+            idx = [int(i) + 1 for i in rest[:n]]
+            counts[head] = [max(a, b) for a, b in zip(counts.get(head, idx), idx)]
+    paths = jax_leaf_groups(dict(named))
+    return {k: (paths[k].replace(".", "/"),
+                tuple(counts.get(k.split(".", 1)[0], ())) + tuple(p.shape))
+            for k, p in named}
 
 
 def weight_decay_mask(params) -> dict:

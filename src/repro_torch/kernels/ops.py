@@ -13,12 +13,18 @@ autograd of the plain version.
 ``mamba_chunk_scan``  — the scan core of ``models.ssm.mamba2_forward``.
 ``mcop_min_cut``      — MCOP with one phase-kernel launch per MinCutPhase,
                         each merging after its phase on the card.
+
+A DTensor q/k/v (a model whose parameters ``runtime.sharding`` placed on a
+mesh) runs ``flash_attention`` on each rank's own shard: batch over the
+data axes, heads over ``"model"`` (``_flash_attention_sharded``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_kernel
 from repro_torch.kernels.mamba_scan import MambaScanFn, mamba_chunk_scan_kernel
@@ -38,13 +44,58 @@ def flash_attention(
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Returns (B, Sq, H, hd_v) in q's dtype (contiguous when q is)."""
+    """Returns (B, Sq, H, hd_v) in q's dtype (contiguous when q is).
+
+    DTensors run the same call on each rank's local shard
+    (:func:`_flash_attention_sharded`)."""
+    if isinstance(q, DTensor):
+        return _flash_attention_sharded(q, k, v, causal=causal, window=window, scale=scale)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cuda":
         out = FlashAttentionFn.apply(qh, kh, vh, causal, window, scale)
     else:
         out = flash_attention_kernel(qh, kh, vh, causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
+
+
+def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, *, causal: bool,
+                             window: int | None, scale: float | None) -> DTensor:
+    """:func:`flash_attention` of DTensors, on local shards.
+
+    Attention is independent across the batch and across heads, so a shard
+    of whole sequences and whole heads is a smaller call of the same
+    function.  q's layout decides: each mesh dimension keeps ``Shard(0)``
+    (batch) or ``Shard(2)`` (heads) or is ``Replicate()``; a ``Partial``
+    is reduced first.  A sharded sequence or head width is refused: the
+    scores of one row would span ranks.  k and v are brought to q's
+    layout.  Query heads shard in contiguous blocks, and so do the kv heads,
+    so GQA's head ``h`` → kv head ``h // rep`` holds on each shard by local
+    index as long as the head-sharding axes divide the kv heads; otherwise
+    it is refused (a kv head split across ranks)."""
+    mesh = q.device_mesh
+    heads, kv_heads = q.shape[2], k.shape[2]
+    layout, split = [], 1
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Partial):
+            p = Replicate()
+        elif isinstance(p, Shard) and p.dim not in (0, 2):
+            raise ValueError(
+                f"flash_attention: q's dimension {p.dim} (the sequence or head width) is "
+                f"sharded over {mesh.mesh_dim_names[i]!r}; gather it first")
+        elif isinstance(p, Shard) and p.dim == 2:
+            split *= mesh.size(i)
+        layout.append(p)
+    if heads % split or kv_heads % split:
+        raise ValueError(f"flash_attention: {heads} query and {kv_heads} kv heads do not "
+                         f"split into {split} shards of whole GQA groups")
+    layout = tuple(layout)
+    q, k, v = (t.redistribute(mesh, layout) for t in (q, k, v))
+
+    def local(ql, kl, vl):
+        return (flash_attention(ql, kl, vl, causal=causal, window=window, scale=scale),)
+
+    return local_map(local, out_placements=(layout,), in_placements=(layout, layout, layout),
+                     device_mesh=mesh)(q, k, v)[0]
 
 
 def mamba_chunk_scan(

@@ -1,1 +1,2 @@
-"""Command-line entry points."""
+"""Command-line entry points (``serve``, ``serve_broker``, ``train``), the
+meshes (``mesh``) and the cells of a sharded run (``specs``)."""

@@ -123,10 +123,12 @@ def naive_attention(
         k_pos = torch.arange(sk, device=dev)
     kr, vr = _repeat_kv(k, rep), _repeat_kv(v, rep)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, kr).to(torch.float32) * scale
-    scores = scores + _mask_bias(mask_kind, q_pos, k_pos, window)[None, None]
+    bias = _mask_bias(mask_kind, q_pos, k_pos, window)[None, None]
+    scores = scores + common.replicated_like(bias, scores)
     if kv_valid_len is not None:
         valid = torch.arange(sk, device=dev) < kv_valid_len
-        scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+        valid = common.replicated_like(valid[None, None, None, :], scores)
+        scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vr)
 

@@ -23,8 +23,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
 __all__ = [
     "Dense",
@@ -42,6 +46,10 @@ __all__ = [
     "apply_mrope",
     "softmax_cross_entropy",
     "softmax_cross_entropy_chunked",
+    "replicated_like",
+    "layout_of",
+    "embed_lookup",
+    "SumAcross",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -139,11 +147,82 @@ def _rope_angles(positions: torch.Tensor, dim: int, theta: float) -> torch.Tenso
     return positions[..., None].to(torch.float32) * inv_freq
 
 
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor of the global shape that every rank computes alike
+    (positions, angles, masks), as a replicated DTensor on ``ref``'s mesh
+    when ``ref`` is a DTensor (DTensor refuses plain tensors beside its
+    own, 0-d ones apart); else ``t`` itself."""
+    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
+        mesh = ref.device_mesh
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table takes :func:`_embed_sharded`."""
+    if isinstance(table, DTensor):
+        return _embed_sharded(table, tokens)
+    return table[tokens]
+
+
+def _embed_sharded(table: DTensor, tokens) -> DTensor:
+    """A vocab-parallel gather from a DTensor table (V, d).
+
+    DTensor's rule for an index into a table split along the vocabulary
+    leaves the gradient's scatter without a strategy (PyTorch 2.11 fails it
+    on the card), so each rank gathers from its own rows: a dimension of
+    the table split over an axis other than the vocabulary's (FSDP's d) is
+    gathered first, each token outside the rank's rows reads zeros, and the
+    rows' owners sum (the output ``Partial`` over the vocabulary's mesh
+    dimensions).  The table's gradient is each rank's scatter of its
+    tokens, summed over the batch's mesh dimensions."""
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    t_pl = tuple(p if p == Shard(0) else Replicate() for p in table.placements)
+    k_pl = tuple(Replicate() if tp == Shard(0) else p
+                 for tp, p in zip(t_pl, tokens.placements))
+    table, tokens = table.redistribute(mesh, t_pl), tokens.redistribute(mesh, k_pl)
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, t_pl)
+    # per mesh dimension: the vocabulary's rows' owners sum the output; the
+    # batch's shards sum the table's gradient
+    out_pl = tuple(Partial() if tp == Shard(0) else kp for tp, kp in zip(t_pl, k_pl))
+    grad_pl = tuple(Partial() if kp != Replicate() else tp for tp, kp in zip(t_pl, k_pl))
+
+    def local(tab, tok):
+        idx = tok - offset[0]
+        here = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab[idx.clamp(0, tab.shape[0] - 1)]
+        return (torch.where(here[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                               device=rows.device)),)
+
+    return local_map(local, out_placements=(out_pl,), in_placements=(t_pl, k_pl),
+                     in_grad_placements=(grad_pl, k_pl), device_mesh=mesh)(table, tokens)[0]
+
+
+def layout_of(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``x`` in the placements of the DTensor ``like``; else ``x``.
+
+    DTensor decides each op's layout from its inputs alone, and nothing
+    pins the activations as the JAX package's input shardings pin them for
+    the whole program: a gather from a table split along d leaves d split
+    for every layer after it, and a residual sum with a row-parallel
+    product's partial sums stays partial, so that the next products run on
+    every token of the batch on every rank.  The embeddings (B, S, d)
+    therefore take the layout of the tokens (B, S) they embed, and each
+    residual sum the residual stream's (the batch over the data axes, d
+    whole): the all-reduce over "model" after a row-parallel product, as
+    tensor parallelism places it."""
+    if isinstance(x, DTensor) and isinstance(like, DTensor) and x.placements != like.placements:
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate the two halves of the last axis (neox style) by the angles."""
     x1, x2 = torch.chunk(x, 2, dim=-1)
-    cos = cos.to(x.dtype)
-    sin = sin.to(x.dtype)
+    cos = replicated_like(cos.to(x.dtype), x)
+    sin = replicated_like(sin.to(x.dtype), x)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
@@ -185,12 +264,100 @@ def apply_mrope(
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                           ignore_id: int = -100) -> torch.Tensor:
     """Mean token NLL in float32 over the labels that are not ``ignore_id``.
-    logits: (..., V); labels: (...)."""
+    logits: (..., V); labels: (...).  DTensor logits take
+    :func:`_cross_entropy_sharded`."""
+    if isinstance(logits, DTensor):
+        return _cross_entropy_sharded(logits, labels, ignore_id=ignore_id)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
     mask = labels != ignore_id
     return ((lse - gold) * mask).sum() / mask.sum().clamp_min(1)
+
+
+class SumAcross(torch.autograd.Function):
+    """The sum of a tensor over a process group, whose result every rank
+    holds: forward an all-reduce, backward the identity (each rank's part
+    enters the sum once).  ``SumAcross.apply(x, group)``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+# token rows of the vocab-parallel loss taken at a time: (rows, V/ranks)
+# float32 logits, recomputed in the backward
+SHARDED_CE_ROWS = 2048
+
+
+def _ce_rows(lf, m, cols):
+    """Each row's sum of ``exp(l - m)`` over a rank's vocabulary columns,
+    and the gold logit where the label lies among them (else 0)."""
+    lf = lf.to(torch.float32)
+    s = torch.exp(lf - m[:, None]).sum(-1)
+    here = (cols >= 0) & (cols < lf.shape[-1])
+    gold = torch.gather(lf, -1, cols.clamp(0, lf.shape[-1] - 1)[:, None])[:, 0]
+    return s, torch.where(here, gold, 0.0)
+
+
+def _cross_entropy_sharded(logits: DTensor, labels, *, ignore_id: int) -> DTensor:
+    """:func:`softmax_cross_entropy` of DTensor logits, vocab-parallel.
+
+    DTensor has no sharding rule for a log-sum-exp and a gather over a
+    vocabulary split across ranks (the LM head's columns over
+    ``"model"``), and gathering the (B, S, V) logits would cost a rank the
+    whole vocabulary.  So each rank takes its local block of token rows and
+    vocabulary columns: the row maxima are all-reduced (MAX) over the
+    vocabulary's mesh dimensions, then the sums of ``exp(l - max)`` and the
+    gold logit (0 where the label lies in another rank's columns) are
+    all-reduced (SUM), and the NLL of the local rows is summed.  The rows go
+    ``SHARDED_CE_ROWS`` at a time under ``torch.utils.checkpoint``, so a
+    rank never holds more than one chunk of float32 logits beside its
+    model-dtype block (the maxima are taken first, without a gradient: the
+    loss does not depend on them).  The sums over the token rows' mesh
+    dimensions are left ``Partial`` and reduced before the division.  The
+    same function to float32 rounding (the sum of exponentials runs in
+    another order)."""
+    mesh = logits.device_mesh
+    vd = logits.ndim - 1
+    layout = tuple(p if isinstance(p, Shard) else Replicate() for p in logits.placements)
+    rows = tuple(p if isinstance(p, Shard) and p.dim < vd else Replicate() for p in layout)
+    vocab_groups = [mesh.get_group(i) for i, p in enumerate(layout) if p == Shard(vd)]
+    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, layout)
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    logits = logits.redistribute(mesh, layout)
+    labels = labels.redistribute(mesh, rows)
+
+    def local(lf, lab):
+        lf, lab = lf.reshape(-1, lf.shape[-1]), lab.reshape(-1)
+        chunks = range(0, lf.shape[0], SHARDED_CE_ROWS)
+        with torch.no_grad():
+            m = torch.cat([lf[i:i + SHARDED_CE_ROWS].to(torch.float32).amax(-1) for i in chunks])
+        for g in vocab_groups:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+        cols = lab - offset[vd]
+        parts = [torch.utils.checkpoint.checkpoint(
+            _ce_rows, lf[i:i + SHARDED_CE_ROWS], m[i:i + SHARDED_CE_ROWS],
+            cols[i:i + SHARDED_CE_ROWS], use_reentrant=False) for i in chunks]
+        s = torch.cat([p[0] for p in parts])
+        gold = torch.cat([p[1] for p in parts])
+        for g in vocab_groups:
+            s, gold = SumAcross.apply(s, g), SumAcross.apply(gold, g)
+        mask = lab != ignore_id
+        return ((m + torch.log(s) - gold) * mask).sum(), mask.sum().to(torch.float32)
+
+    summed = tuple(Partial() if p != Replicate() else Replicate() for p in rows)
+    nll, count = local_map(local, out_placements=(summed, summed),
+                           in_placements=(layout, rows), device_mesh=mesh)(logits, labels)
+    whole = [Replicate()] * mesh.ndim
+    return nll.redistribute(mesh, whole) / count.redistribute(mesh, whole).clamp_min(1)
 
 
 def _ce_chunk(h, wc, col0: int, vocab: int, labels, m, l, gold):

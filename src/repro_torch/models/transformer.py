@@ -91,7 +91,8 @@ def _embed_tokens(cfg: ModelConfig, params: nn.Module, batch: dict) -> torch.Ten
     ``Bp <= B``: elsewhere the JAX package fails, and this raises
     ``ValueError``."""
     dt = common.dtype_of(cfg.dtype)
-    x = params.embed.embedding[batch["tokens"]].to(dt)
+    tokens = batch["tokens"]
+    x = common.layout_of(common.embed_lookup(params.embed.embedding, tokens).to(dt), tokens)
     if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
         patches = batch["patch_embeds"]
         pb, pp, pd = patches.shape
@@ -192,13 +193,13 @@ def _decoder_block(cfg: ModelConfig, p: DecoderBlock, x: torch.Tensor, *,
         kcache = None if cache is None else attn_lib.KVCache(cache["k"], cache["v"], length)
         a, _ = attn_lib.attention_forward(cfg, p.attn, h, positions=positions,
                                           cache=kcache, use_chunked=use_chunked)
-    x = x + a
+    x = common.layout_of(x + a, x)
     h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
     if p.moe is not None:
         f, aux = ffn.moe_forward(cfg, p.moe, h)
     else:
         f, aux = ffn.swiglu_forward(p.ffn, h), torch.zeros((), device=x.device)
-    return x + f, aux
+    return common.layout_of(x + f, x), aux
 
 
 def _run_decoder_stack(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor, *,

@@ -1,10 +1,6 @@
-"""Distributed runtime: the solver fleet's sharding helpers, elastic
-re-placement and gradient compression.
-
-Ported so far: ``sharding`` (the solver part), ``elastic`` and
-``compression``.  The rest of the JAX package's training runtime (the
-rest of ``sharding``, ``pipeline``) is still to come (ROADMAP Queue A).
-"""
+"""Distributed runtime: sharding rules (parameters, states, inputs and
+the solver fleet's axis), the GPipe pipeline over ``"pod"``, elastic
+re-placement and gradient compression."""
 
 from repro_torch.runtime.compression import (
     CompressionState,
@@ -22,7 +18,22 @@ from repro_torch.runtime.elastic import (
     HeartbeatMonitor,
     PendingElasticEvent,
 )
-from repro_torch.runtime.sharding import SOLVE_AXIS, solver_axis, solver_shards
+from repro_torch.runtime.pipeline import pipeline_apply, pipeline_spec_for, stack_stage_params
+from repro_torch.runtime.sharding import (
+    FSDP_MIN_ELEMENTS,
+    SOLVE_AXIS,
+    batch_axes,
+    input_shardings,
+    logical_batch_spec,
+    param_shardings,
+    param_spec,
+    param_specs,
+    placements,
+    shard_params,
+    solver_axis,
+    solver_shards,
+    state_shardings,
+)
 
 __all__ = [
     "CompressionState",
@@ -36,6 +47,19 @@ __all__ = [
     "ElasticMeshManager",
     "HeartbeatMonitor",
     "PendingElasticEvent",
+    "pipeline_apply",
+    "pipeline_spec_for",
+    "stack_stage_params",
+    "FSDP_MIN_ELEMENTS",
+    "batch_axes",
+    "input_shardings",
+    "logical_batch_spec",
+    "param_shardings",
+    "param_spec",
+    "param_specs",
+    "placements",
+    "shard_params",
+    "state_shardings",
     "SOLVE_AXIS",
     "solver_axis",
     "solver_shards",

@@ -58,13 +58,15 @@ OptState = dict
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor]) -> OptState:
-    """Zero moments in float32 beside each parameter, step 0."""
+    """Zero moments in float32 beside each parameter, step 0.  A DTensor
+    parameter's moments are DTensors of its placements (as the JAX
+    package's moments inherit the parameter's sharding)."""
     f32 = torch.float32
     some = next(iter(params.values()), None)
     device = some.device if some is not None else "cpu"
     return {
-        "mu": {k: torch.zeros(p.shape, dtype=f32, device=p.device) for k, p in params.items()},
-        "nu": {k: torch.zeros(p.shape, dtype=f32, device=p.device) for k, p in params.items()},
+        "mu": {k: torch.zeros_like(p, dtype=f32) for k, p in params.items()},
+        "nu": {k: torch.zeros_like(p, dtype=f32) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
 
@@ -88,10 +90,12 @@ def cosine_schedule(cfg: AdamWConfig) -> Callable[[torch.Tensor], torch.Tensor]:
 def clip_by_global_norm(grads: Mapping[str, torch.Tensor],
                         max_norm: float) -> tuple[dict, torch.Tensor]:
     """``(grads scaled to a global norm of at most max_norm, the norm)``;
-    the norm is float32 over every leaf."""
+    the norm is float32 over every leaf (of DTensor leaves: over every
+    element of every shard, a replicated DTensor)."""
     leaves = list(grads.values())
-    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves)
-    norm = torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device if leaves else "cpu")
+    sq = sum((torch.sum(torch.square(g.to(torch.float32))) for g in leaves), zero)
+    norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {k: (g * scale).to(g.dtype) for k, g in grads.items()}, norm
 

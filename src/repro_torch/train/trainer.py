@@ -31,6 +31,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.runtime import compression as comp_lib
 from repro_torch.train.optimizer import AdamWConfig, OptState, adamw_update, init_opt_state
@@ -63,6 +64,27 @@ def init_train_state(params: nn.Module, cfg: TrainConfig) -> TrainState:
     return TrainState(params=params, opt_state=init_opt_state(leaves), comp_state=comp)
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements: autograd leaves
+    the sum over the batch's shards pending (``Partial``); this reduces it
+    (a reduce-scatter onto a sharded parameter, an all-reduce onto a
+    replicated one)."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _float_grads(loss: torch.Tensor, tensors: list):
+    """The float32 gradients of ``loss`` for ``tensors``, one at a time, each
+    in its parameter's placements (:func:`_placed_like`); autograd's own
+    gradient is dropped as soon as its float32 copy exists, so a rank never
+    holds every unreduced gradient beside every reduced one."""
+    grads = list(torch.autograd.grad(loss, tensors))
+    for i, p in enumerate(tensors):
+        g, grads[i] = grads[i], None
+        yield _placed_like(g, p).to(torch.float32)
+
+
 def _split(batch: dict, n: int, i: int) -> dict:
     return {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i] for k, v in batch.items()}
 
@@ -78,18 +100,15 @@ def make_train_step(
         names, tensors = list(leaves), list(leaves.values())
         if cfg.n_micro == 1:
             loss, _ = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, tensors)
-            return loss.detach(), {k: g.to(torch.float32) for k, g in zip(names, grads)}
+            return loss.detach(), {k: g for k, g in zip(names, _float_grads(loss, tensors))}
         if any(v.shape[0] % cfg.n_micro for v in batch.values()):
             raise ValueError(f"the batch does not split into {cfg.n_micro} microbatches")
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for k, p in leaves.items()}
+        acc = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in leaves.items()}
         loss_acc = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
         for i in range(cfg.n_micro):
             loss, _ = loss_fn(params, _split(batch, cfg.n_micro, i))
-            grads = torch.autograd.grad(loss, tensors)
-            for k, g in zip(names, grads):
-                acc[k] = acc[k] + g.to(torch.float32) / cfg.n_micro
+            for k, g in zip(names, _float_grads(loss, tensors)):
+                acc[k] = acc[k] + g / cfg.n_micro
             loss_acc = loss_acc + loss.detach() / cfg.n_micro
         return loss_acc, acc
 

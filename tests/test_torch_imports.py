@@ -9,8 +9,11 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+SRC_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+# the smoke, and the rank code it shares with the multi-GPU tool
+PORT_FILES = SRC_FILES + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_dist_ranks.py",
+    ROOT / "tools" / "torch_sharded_train.py",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro(\.|\s))",
@@ -19,7 +22,7 @@ FORBIDDEN = re.compile(
 
 
 def test_port_has_the_expected_modules():
-    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in PORT_FILES[:-1]}
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix() for p in SRC_FILES}
     for expected in (
         "core/graph.py", "core/cost_models.py", "core/mcop.py", "core/pricing.py",
         "core/baselines.py", "core/placement_cache.py", "core/adaptive.py",
@@ -38,7 +41,8 @@ def test_port_has_the_expected_modules():
         "profilers/network.py", "profilers/energy.py", "configs/deepseek_v2_236b.py",
         "configs/qwen2_vl_72b.py", "configs/seamless_m4t_large_v2.py", "configs/xlstm_1p3b.py",
         "train/optimizer.py", "train/trainer.py", "data/pipeline.py", "checkpoint/store.py",
-        "runtime/compression.py", "launch/train.py",
+        "runtime/compression.py", "launch/train.py", "runtime/pipeline.py",
+        "launch/specs.py",
     ):
         assert expected in names
 
@@ -82,6 +86,7 @@ import repro_torch.serving, repro_torch.launch.serve, repro_torch.profilers
 import repro_torch.core.placement, repro_torch.launch.serve_broker
 import repro_torch.core.mcop_shard, repro_torch.launch.mesh, repro_torch.runtime
 import repro_torch.train, repro_torch.data, repro_torch.checkpoint, repro_torch.launch.train
+import repro_torch.runtime.pipeline, repro_torch.launch.specs
 from repro_torch.kernels import build
 def refuse(*a, **k):
     raise AssertionError("the build was reached on the CPU")
@@ -151,7 +156,8 @@ ENTRIES = ["mcop_batch", "solve_envs", "mcop", "price_summary",
            "model_init", "model_cache", "engine", "serve_main", "placement_batch",
            "min_cut", "serve_broker_main", "serve_broker_reference",
            "solver_mesh", "elastic_manager", "sharded_solve_envs", "model_init_moe",
-           "engine_extras", "serve_main_encdec", "train_main", "train_dataset"]
+           "engine_extras", "serve_main_encdec", "train_main", "train_dataset",
+           "local_mesh", "production_mesh"]
 
 _NO_GPU_CODE = """
 import json
@@ -184,7 +190,7 @@ sock = os.path.join(tempfile.mkdtemp(), "s.sock")
 
 from repro_torch.configs import get_config, reduce_config, SHAPES
 from repro_torch.core.placement import TPUV5E_TIER, plan_placement_batch
-from repro_torch.launch.mesh import make_solver_mesh
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh, make_solver_mesh
 from repro_torch.runtime import ElasticMeshManager
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.train import main as train_main
@@ -218,6 +224,9 @@ runs = {
     "min_cut": lambda: mcop_min_cut(g.adj, g.w_local, g.w_cloud, g.offloadable),
     # every CUDA device this process sees: none
     "solver_mesh": lambda: make_solver_mesh(),
+    # the training meshes: no GPU, and no process group either
+    "local_mesh": lambda: make_local_mesh(),
+    "production_mesh": lambda: make_production_mesh(multi_pod=True),
     "elastic_manager": lambda: ElasticMeshManager(
         stage_specs(zamba, SHAPES["decode_32k"]), TPUV5E_TIER, TPUV5E_TIER, backend="cuda"),
     # a fleet of four shards on the default device

@@ -1,0 +1,327 @@
+"""What a rank of a distributed run does on the GPU, shared by
+``chip_smoke.py`` (phases ``train_sharded`` and ``pipeline``: four ranks as
+threads on one card) and ``tools/torch_sharded_train.py`` (one process a
+GPU): the training steps with their launch and collective counts, and the
+pipeline over qwen2-7b's blocks.
+
+Nothing here starts a process group or a rank: each function runs inside a
+rank whose group the caller made.  Imports neither ``jax`` nor ``repro``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+DEVICE = "cuda"
+
+# the flash-attention module's launch counters a rank reads, by their smoke
+# names (on one card each rank, a thread, keeps its own: RankCounts)
+RANK_KEYS = {"flash_attention_kernel": ("LAUNCHES", "flash_attention_kernel"),
+             "flash_attention_kernel.tensor_cores": ("VARIANT_LAUNCHES", "tensor_cores"),
+             "flash_attention_kernel.cuda_cores": ("VARIANT_LAUNCHES", "cuda_cores"),
+             "flash_attention_bwd_kernel": ("BWD_LAUNCHES", "flash_attention_bwd_kernel"),
+             "flash_attention_bwd_kernel.tensor_cores": ("BWD_VARIANT_LAUNCHES", "tensor_cores"),
+             "flash_attention_bwd_kernel.cuda_cores": ("BWD_VARIANT_LAUNCHES", "cuda_cores")}
+
+
+class RankCounts(dict):
+    """A kernel module's launch counter whose increments each thread keeps
+    for itself: on one card the ranks are threads of one process, and
+    ``COUNTER[key] += 1`` in a wrapper then lands in the calling rank's
+    row."""
+
+    def __init__(self, keys):
+        super().__init__()
+        import threading
+
+        self._keys, self._local, self.by_thread = tuple(keys), threading.local(), {}
+
+    def _mine(self) -> dict:
+        import threading
+
+        mine = getattr(self._local, "counts", None)
+        if mine is None:
+            mine = self._local.counts = dict.fromkeys(self._keys, 0)
+            self.by_thread[threading.current_thread().name] = mine
+        return mine
+
+    def __getitem__(self, key):
+        return self._mine()[key]
+
+    def __setitem__(self, key, value):
+        self._mine()[key] = value
+
+
+def install_rank_counts() -> None:
+    """Give every counter of RANK_KEYS a row per thread (ranks as threads)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for name in {counter for counter, _ in RANK_KEYS.values()}:
+        setattr(fa, name, RankCounts(dict.keys(getattr(fa, name))))
+
+
+def rank_launches() -> dict:
+    """This rank's B4 and B4-bwd launches by the smoke's names."""
+    from repro_torch.kernels import flash_attention as fa
+
+    return {name: getattr(fa, counter)[key] for name, (counter, key) in RANK_KEYS.items()}
+
+
+def reset_rank_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
+
+    for counter, key in RANK_KEYS.values():
+        getattr(fa, counter)[key] = 0
+
+
+class CollectiveCount:
+    """Collective calls and bytes of one rank, by kind, while active:
+    DTensor's (the functional collectives, seen by a dispatch mode) and the
+    port's own ``dist.all_reduce`` / ``dist.all_to_all_single`` (the
+    vocab-parallel loss, the pipeline), seen by wrappers.  Bytes are what
+    the rank hands the collective: an all-gather's shard, a
+    reduce-scatter's or an all-reduce's whole input, an all-to-all's sent
+    part."""
+
+    _active = None   # threading.local: the calling thread's counter
+    _wrapped = False
+
+    def __init__(self):
+        from collections import Counter
+
+        self.calls, self.bytes = Counter(), Counter()
+
+    def add(self, kind: str, tensors) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += sum(t.numel() * t.element_size() for t in tensors
+                                if isinstance(t, torch.Tensor))
+
+    @classmethod
+    def _install(cls) -> None:
+        import threading
+
+        import torch.distributed as dist
+
+        if cls._wrapped:
+            return
+        cls._active, cls._wrapped = threading.local(), True
+        for name, kind, sent in (("all_reduce", "port/all_reduce", lambda a, k: [a[0]]),
+                                 ("all_to_all_single", "port/all_to_all_single",
+                                  lambda a, k: [a[1]])):
+            orig = getattr(dist, name)
+
+            def wrapped(*args, _orig=orig, _kind=kind, _sent=sent, **kwargs):
+                counter = getattr(cls._active, "counter", None)
+                if counter is not None:
+                    counter.add(_kind, _sent(args, kwargs))
+                return _orig(*args, **kwargs)
+
+            setattr(dist, name, wrapped)
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        self._install()
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func._opname
+                if func.namespace == "_c10d_functional" and not name.startswith(("wait", "_")):
+                    counter.add(f"dtensor/{name}", tree_leaves(args)[:1])
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        CollectiveCount._active.counter = self
+        return self
+
+    def __exit__(self, *exc):
+        CollectiveCount._active.counter = None
+        self._mode.__exit__(*exc)
+
+    def summary(self) -> dict:
+        return {k: {"calls": self.calls[k], "bytes": self.bytes[k]} for k in sorted(self.calls)}
+
+
+def depth_config(arch: str, layers: int):
+    """``arch`` at its published widths, ``layers`` of its layers."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def train_batches(cfg, seq_len: int, global_batch: int, steps: int, seed: int):
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+
+    data = SyntheticLMDataset(DataConfig(seq_len, global_batch, cfg.vocab_size, seed=seed),
+                              cfg, device=DEVICE)
+    return [data.batch(i) for i in range(steps)]
+
+
+def module_with(cfg, tensors: dict):
+    """The model's parameter module on ``meta``, its parameters replaced by
+    ``tensors`` (plain or DTensors)."""
+    from repro_torch.models.transformer import Model
+
+    params = Model(cfg, device="meta").init()
+    for name, t in tensors.items():
+        mod, _, leaf = name.rpartition(".")
+        setattr(params.get_submodule(mod), leaf, torch.nn.Parameter(t))
+    return params
+
+
+def train_run(cfg, params, batches, lr: float, *, vocab_chunk: int = 0, mesh=None,
+              step1: str = "") -> dict:
+    """Steps of ``make_train_step`` over ``batches`` (placed on ``mesh``
+    when given), each timed and its launches and collectives read.
+    ``step1``: "keep" the parameters after the first step (whole, on the
+    host), "join" the gathers of them only (a rank other than 0), or ""
+    neither."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import input_shardings
+    from repro_torch.train import AdamWConfig, TrainConfig, init_train_state, make_train_step
+
+    model = Model(cfg, device=DEVICE)
+    model.vocab_chunk = vocab_chunk
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=lr, warmup_steps=1, total_steps=len(batches)))
+    state = init_train_state(params, tcfg)
+    step = make_train_step(model.train_loss, tcfg)
+    steps, kept = [], None
+    for i, batch in enumerate(batches):
+        if mesh is not None:
+            pl = input_shardings(batch, mesh)
+            batch = {k: distribute_tensor(v, mesh, pl[k], src_data_rank=None)
+                     for k, v in batch.items()}
+        torch.cuda.synchronize()
+        reset_rank_launches()
+        with CollectiveCount() as coll:
+            t0 = time.perf_counter()
+            _, state.opt_state, _, m = step(params, state.opt_state, None, batch, None)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        steps.append({"loss": loss, "grad_norm": gnorm, "seconds": seconds,
+                      "launches": rank_launches(), "collectives": coll.summary()})
+        if step1 and i == 0:
+            kept = {}
+            for k, p in params.named_parameters():
+                whole = p.full_tensor() if mesh is not None else p.detach()
+                if step1 == "keep":  # on the host: the card's memory is the ranks'
+                    kept[k] = whole.cpu()
+            kept = kept or None
+    local = sum(t.to_local().numel() * t.to_local().element_size() if mesh is not None
+                else t.numel() * t.element_size()
+                for t in [*params.parameters(), *state.opt_state["mu"].values(),
+                          *state.opt_state["nu"].values()])
+    return {"steps": steps, "step1": kept, "state_bytes": local}
+
+
+class BlockCall(torch.nn.Module):
+    """One decoder block as a module with a forward, so that
+    ``torch.func.functional_call`` runs it on one layer's slice of the
+    stacked stage parameters."""
+
+    def __init__(self, cfg, block):
+        super().__init__()
+        self.cfg, self.block = cfg, block
+
+    def forward(self, x):
+        from repro_torch.models.transformer import CHUNKED_ABOVE, _decoder_block
+
+        b, s, _ = x.shape
+        pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        return _decoder_block(self.cfg, self.block, x, positions=pos, cache=None, length=0,
+                              use_chunked=s > CHUNKED_ABOVE)[0]
+
+
+def block_stage(call):
+    """A stage_fn: the stage's layers in turn, each under remat."""
+    def one(p, i, x):
+        return torch.func.functional_call(call, {f"block.{k}": v[i] for k, v in p.items()}, (x,))
+
+    def stage(p, x):
+        for i in range(next(iter(p.values())).shape[0]):
+            x = torch.utils.checkpoint.checkpoint(one, p, i, x, use_reentrant=False)
+        return x
+    return stage
+
+
+def block_call(cfg) -> BlockCall:
+    """A block to call with a layer's parameters: one for each rank, since
+    ``functional_call`` swaps a module's parameters while it runs (on
+    ``meta``: every parameter is swapped)."""
+    from repro_torch.models.transformer import Model
+
+    return BlockCall(cfg, Model(cfg, device="meta").init().blocks[0])
+
+
+def setup_pipeline(spec: dict) -> dict:
+    """``spec["blocks"]`` blocks of ``spec["arch"]`` (seeded), stacked and
+    split into ``spec["mesh"][0]`` stages, and x (``batch``, ``seq_len``,
+    d_model) bf16: what every rank of the pipeline shares."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.runtime import stack_stage_params
+
+    cfg = depth_config(spec["arch"], spec["blocks"])
+    blocks = Model(cfg, device=DEVICE).init(spec["seed"]).blocks
+    gen = torch.Generator(device=DEVICE).manual_seed(spec["seed"] + 1)
+    x = torch.randn((spec["batch"], spec["seq_len"], cfg.d_model), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    stacked = {k: v.detach() for k, v in torch.func.stack_module_state(list(blocks))[0].items()}
+    n_stages = spec["mesh"][0]
+    return {"cfg": cfg, "x": x, "stacked": stacked,
+            "staged": stack_stage_params(stacked, n_stages)}
+
+
+def rank_pipeline(rank: int, world: int, spec: dict, shared: dict, *,
+                  gather: bool = True) -> dict:
+    """One rank of ``pipeline_apply`` over the shared stages, for each of
+    ``spec["n_micro"]``: forward and backward of the output's sum, timed,
+    with launches and collectives.  ``gather``: every rank joins the
+    gathers of the output and the gradients, and rank 0 keeps them."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import pipeline_apply, pipeline_spec_for, placements
+
+    axes = ("pod", "data")[:len(spec["mesh"])]
+    mesh = make_mesh(spec["mesh"], axes, device=DEVICE)
+    specs = pipeline_spec_for(shared["staged"])
+    stage_fn = block_stage(block_call(shared["cfg"]))
+    out = {}
+    for n_micro in spec["n_micro"]:
+        leaves = {k: torch.nn.Parameter(distribute_tensor(
+            v.clone(), mesh, placements(specs[k], mesh), src_data_rank=None))
+            for k, v in shared["staged"].items()}
+        x = distribute_tensor(shared["x"], mesh, placements(("data",) if "data" in axes else (),
+                                                            mesh), src_data_rank=None)
+        x.requires_grad_(True)
+        torch.cuda.synchronize()
+        reset_rank_launches()
+        with CollectiveCount() as coll:
+            t0 = time.perf_counter()
+            y = pipeline_apply(stage_fn, leaves, x, mesh=mesh, n_micro=n_micro)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            y.sum().backward()
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        launches = rank_launches()
+        res = {"forward_seconds": fwd_s, "seconds": total_s, "launches": launches,
+               "collectives": coll.summary()}
+        if gather:
+            whole = {"out": y.full_tensor(), "x_grad": x.grad.full_tensor(),
+                     "p_grads": {k: v.grad.full_tensor() for k, v in leaves.items()}}
+            if rank == 0:
+                res.update(whole)
+            del whole
+        out[n_micro] = res
+        del leaves, x, y
+    return out
