@@ -124,6 +124,22 @@ one JSON object per line:
                       width and 4160 tokens within 1e-5 (each leaf's
                       change within 1e-2); tokens/s,
                       peak memory, collective calls and bytes a rank and step.
+   ``train_sharded_families`` — zamba2-1.2b at published widths, 4 of its 38
+                      layers (two shared-block invocations), trained sharded
+                      like ``train_sharded`` (bf16, 2 x 8192 tokens, 2 steps,
+                      (data 2, model 2), four thread ranks): every rank runs
+                      B5 2 x 4 and B5-bwd 4 times a step on its 32 of the 64
+                      Mamba2 heads and B4 2 x 2 and B4-bwd 2 times on its 16
+                      of the shared block's 32 heads; held to the unsharded
+                      run on the card and to a float32 step by the limits
+                      of TRAIN_SHARDED_HYBRID; then two
+                      f32 replays, sharded on the card against unsharded on
+                      the CPU (plain versions) within 1e-5 (each leaf's
+                      change within 1e-2): the reduced zamba2 at 4160 tokens
+                      and the reduced deepseek-v2 with MLA's published
+                      (192, 128) heads at 4160 tokens (B4 and B4-bwd on the
+                      CUDA cores at (192, 128), 2 heads a rank; the MoE
+                      layer's capacity drops over the whole batch).
    ``pipeline``     — qwen2-7b's 4 blocks through ``runtime.pipeline_apply``
                       on (pod 2, data 2), two stages of two, x (8, 8192, 3584)
                       bf16, n_micro 1, 2, 4: output and gradients against the
@@ -159,7 +175,8 @@ launches of its passes, counted once), each model of phase
 ``serve_families`` (B4 once per attention layer of a prefill, no other
 kernel), each step of phase ``train`` (B4, B4-bwd, B5, B5-bwd) and phase 8 (the per-phase tier: B3 once per MinCutPhase).  A
 kernel of a path that was not launched there fails the run; in phases
-``train_sharded`` and ``pipeline`` each rank keeps its own counts (B4 and B4-bwd),
+``train_sharded``, ``train_sharded_families`` and ``pipeline`` each rank keeps
+its own counts (B4, B4-bwd, B5 and B5-bwd),
 set to 0 before each step or run and read after it; the server of phase 9 runs B1 in its own
 process, so the phase fails unless its tick reports show solves.  Then a
 ``kernel_work`` line counts the work of the MCOP kernels' timed shapes
@@ -262,7 +279,11 @@ FLASH_CHECKS = (
     (2, 4, 2, 1000, 1337, 32, True, 300, "bfloat16", "model"),
     (1, 14, 2, 8192, 8192, 128, True, None, "bfloat16", "model"),
     (4, 28, 4, 8192, 8192, 128, True, None, "bfloat16", "model"),
+    (1, 16, 16, 8192, 8192, 64, True, 4096, "bfloat16", "model"),
+    (1, 2, 2, 4160, 4160, 16, True, 4096, "float32", "model"),
 )
+# the last two: zamba2's shared block as train_sharded_families hands it to
+# B4 on a rank (16 of 32 heads; the f32 replay's 2 of 4).
 # (atol, rtol) by dtype.  bf16: both sides round an f32 result to bf16, so
 # they may differ by one bf16 step of the output, at most 2^-7 |o|, plus
 # what f32 sums in another order leave before the rounding (under 1e-6 in
@@ -282,7 +303,12 @@ MLA_FLASH_CHECKS = (
     (2, 4, 4, 1000, 1337, 192, False, 300, "bfloat16", "heads", 128),
     (1, 8, 8, 700, 700, 192, True, None, "float32", "model", 128),
     (2, 4, 4, 4200, 4200, 24, True, None, "float32", "model", 16),
+    (1, 2, 2, 4160, 4160, 192, True, None, "float32", "model", 128),
+    (1, 64, 64, 8192, 8192, 192, True, None, "bfloat16", "model", 128),
 )
+# the last two: MLA's heads on a rank of (data 2, model 2): the f32 replay
+# of train_sharded_families (2 of 4 heads) and deepseek-v2 at published
+# widths as tools/torch_sharded_train.py runs it (64 of 128 heads).
 
 
 def expected_flash_variant(dtype: str, hd: int, hd_v: int | None = None) -> str:
@@ -305,7 +331,11 @@ MAMBA_CHECKS = (
     (4, 8192, 8192, 64, 64, 64, 256, "model"),
     (2, 4100, 4352, 64, 64, 64, 256, "heads"),
     (2, 4100, 4112, 8, 16, 16, 16, "slices"),
+    (1, 8192, 8192, 32, 64, 64, 256, "model"),
+    (1, 4160, 4160, 4, 16, 16, 16, "model"),
 )
+# the last two: a rank's heads in train_sharded_families (zamba2's 32 of 64,
+# the f32 replay's 4 of 8).
 MAMBA_RTOL = 1e-4   # f32 sums in another order; atol = rtol x the output's max
 SERVE = {"arch": "zamba2-1.2b", "requests": 8, "max_batch": 4,
          "prompt": (4608, 8192), "new_tokens": 16, "seed": 0}
@@ -1742,7 +1772,13 @@ FLASH_BWD_CHECKS = (
     (1, 8, 2, 333, 517, 32, True, 100, "bfloat16", "heads", 32),
     (1, 14, 2, 8192, 8192, 128, True, None, "bfloat16", "model", 128),
     (1, 28, 4, 8192, 8192, 128, True, None, "bfloat16", "model", 128),
+    (1, 16, 16, 8192, 8192, 64, True, 4096, "bfloat16", "model", 64),
+    (1, 2, 2, 4160, 4160, 16, True, 4096, "float32", "model", 16),
+    (1, 2, 2, 4160, 4160, 192, True, None, "float32", "model", 128),
+    (1, 64, 64, 8192, 8192, 192, True, None, "bfloat16", "model", 128),
 )
+# the last four: the local shapes of train_sharded_families and of
+# deepseek-v2 on four GPUs (FLASH_CHECKS, MLA_FLASH_CHECKS).
 # max |kernel - plain| of each gradient over its max |plain|.  f32: sums in
 # another order over up to 8192 keys, and P = exp(s - L) against the plain
 # version's exp(s - max) / sum, ~1e-6 of the largest gradient; 1e-4 leaves
@@ -1760,6 +1796,8 @@ MAMBA_BWD_CHECKS = (
     (2, 8192, 8192, 64, 64, 64, 256, "model"),
     (2, 4100, 4352, 64, 64, 64, 256, "heads"),
     (2, 4100, 4112, 8, 16, 16, 16, "slices"),
+    (1, 8192, 8192, 32, 64, 64, 256, "model"),
+    (1, 4160, 4160, 4, 16, 16, 16, "model"),
 )
 
 
@@ -1909,6 +1947,65 @@ def check_mamba_bwd(rng, case, *, measure: bool) -> dict:
     return entry
 
 
+# step 0's uneven GQA: qwen2-7b's 28 query / 4 kv heads chunked over 16
+# model ranks (2 a rank on 14, none on 2), bf16, 2048 tokens
+GQA_UNEVEN = {"heads": 28, "kv_heads": 4, "ranks": 16, "seq": 2048, "hd": 128}
+
+
+def check_gqa_uneven(rng) -> dict:
+    """B4 and B4-bwd on each rank's query heads and the kv heads
+    ``kernels.ops.gqa_local_kv`` selects for them (a view, or one kv head
+    per query head), through ``ops.flash_attention`` with autograd: each
+    rank's output against the plain version's of the whole GQA at its
+    heads, and the sum of the ranks' k/v gradients (DTensor's ``Partial``
+    over the replicated k and v) and their q gradients against the plain
+    backward's, at the bf16 tolerances."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_plain
+
+    c = GQA_UNEVEN
+    h, hkv, s, hd, m = c["heads"], c["kv_heads"], c["seq"], c["hd"], c["ranks"]
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    q, k, v = (torch.randn((1, s, n, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+               for n in (h, hkv, hkv))
+    dout = torch.randn((1, s, h, hd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    leaves = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = flash_attention_plain(*(t.transpose(1, 2) for t in leaves), causal=True)
+    want.backward(dout.float().transpose(1, 2))
+    want = want.transpose(1, 2).to(torch.bfloat16)
+    per = -(-h // m)
+    out_err, local = 0.0, []
+    dq = torch.zeros_like(q, dtype=torch.float32)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    for r in range(m):
+        h0, nh = min(r * per, h), max(0, min(per, h - r * per))
+        local.append(nh)
+        if nh == 0:
+            continue
+        ql = q[:, :, h0:h0 + nh].detach().requires_grad_(True)
+        kk, vv = k.detach().requires_grad_(True), v.detach().requires_grad_(True)
+        kl, vl = ops.gqa_local_kv(kk, vv, h0, nh, h // hkv)
+        got = ops.flash_attention(ql, kl, vl, causal=True)
+        got.backward(dout[:, :, h0:h0 + nh])
+        want_r = want[:, :, h0:h0 + nh].float()
+        out_err = max(out_err, float((got.float() - want_r).abs().max()
+                                     / want_r.abs().max()))
+        dq[:, :, h0:h0 + nh] += ql.grad.float()
+        dk += kk.grad.float()
+        dv += vv.grad.float()
+    tol = FLASH_BWD_TOL["bfloat16"]
+    errs = {"out": out_err}
+    for name, got_g, leaf in (("dq", dq, leaves[0]), ("dk", dk, leaves[1]), ("dv", dv, leaves[2])):
+        errs[name] = float((got_g - leaf.grad).abs().max() / leaf.grad.abs().max())
+    if not max(errs.values()) <= tol:
+        raise AssertionError(f"uneven GQA over {m} ranks: {errs} over {tol}")
+    return {"name": "flash_attention_kernel.gqa_uneven", "heads": [h, hkv], "ranks": m,
+            "local_heads": local, "seq": s, "hd": hd, "dtype": "bfloat16",
+            "max_rel_err": errs, "tol": tol,
+            "tol_meaning": "max |kernel - plain| / max |plain|, each of out, dq, dk, dv"}
+
+
 def phase_model_kernel_checks(rng) -> dict:
     """B4 and B5 against their plain versions; the first shape of each is
     the hybrid model's prefill and is also timed for the kernels line, and
@@ -1925,8 +2022,10 @@ def phase_model_kernel_checks(rng) -> dict:
     mamba_bwd = [check_mamba_bwd(rng, c, measure=i == 0)
                  for i, c in enumerate(MAMBA_BWD_CHECKS)]
     torch.cuda.empty_cache()
+    gqa = [check_gqa_uneven(rng)]
+    torch.cuda.empty_cache()
     return {"phase": "model_kernel_checks",
-            "entries": flash + mla + lse + mamba + flash_bwd + mamba_bwd}
+            "entries": flash + mla + lse + mamba + flash_bwd + mamba_bwd + gqa}
 
 
 # ----------------------------------------------------------------------
@@ -3116,6 +3215,39 @@ TRAIN_SHARDED = {"arch": "qwen2-7b", "layers": 4, "seq_len": 8192, "global_batch
 # matrix shapes differ between a microbatch and the whole batch.
 PIPELINE = {"arch": "qwen2-7b", "blocks": 4, "mesh": (2, 2), "batch": 8, "seq_len": 8192,
             "n_micro": (1, 2, 4), "seed": 0, "tol": 2.0**-5, "timeout": 300}
+# zamba2-1.2b at published widths, 4 of its 38 layers (two groups: the
+# shared block runs twice), trained sharded as TRAIN_SHARDED, with its
+# limits on the loss and the step-1 parameters; the unsharded run takes the
+# whole vocabulary's loss (32 000 columns).  Its gradient norm and step-1
+# changes differ from the unsharded run's by more than qwen2-7b's: the bf16
+# rounding of the partial sums over "model" (tools/torch_sharded_limits.py
+# on an H100: seeds 0-2 read 3.4e-3 to 8.5e-3 and 0.40 to 0.49; with every
+# sharded product's partial sums reduced in float32 the sharded step's
+# distance from a float32 step falls from 1.89x the unsharded step's to
+# 1.02x; on (data 2, model 1) it reads 0.99x, on (data 1, model 4) 2.01x).
+# So the two bf16 runs are held to each other within 1.5e-2 and 0.6, and
+# each to the same step in float32 on the card (f32_distances): the sharded
+# one no further from it than f32_slack times the unsharded one (sound
+# runs 0.93x to 2.52x).  Faults planted by the tool read far outside: B and
+# C's gradient lost 0.29, 1.08 and 99x; taken twice 0.84, 0.87 and 304x.
+# Its f32 replay (the reduced config at 4160 tokens, so that the shared
+# block takes B4) runs unsharded on the CPU; so does the reduced
+# deepseek-v2's, whose MLA keeps the published (192, 128) heads: B4 and
+# B4-bwd at (192, 128) in f32 (the CUDA cores), 2 heads a rank.
+TRAIN_SHARDED_HYBRID = {
+    "arch": "zamba2-1.2b", "layers": 4, "seq_len": 8192, "global_batch": 2, "steps": 2,
+    "mesh": (2, 2), "seed": 0, "lr": 1e-4, "ref_vocab_chunk": 0, "timeout": 600,
+    "loss_tol": 5e-2, "param_tol": 0.15, "grad_norm_rtol": 1.5e-2, "change_rtol": 0.6,
+    "f32_reference": True, "f32_slack": 5.0,
+    "replay": {"seq_len": 4160, "global_batch": 2, "steps": 2, "rtol": 1e-5,
+               "change_rtol": 1e-2, "widths": {}, "device": "cpu"}}
+TRAIN_SHARDED_MLA = {
+    "arch": "deepseek-v2-236b", "mesh": (2, 2), "seed": 0, "lr": 1e-4, "timeout": 600,
+    "expert_mode": "ep_model",
+    "replay": {"seq_len": 4160, "global_batch": 2, "steps": 2, "rtol": 1e-5,
+               "change_rtol": 1e-2, "device": "cpu",
+               "widths": {"mla": dict(kv_lora_rank=32, q_lora_rank=48, qk_nope_head_dim=128,
+                                      qk_rope_head_dim=64, v_head_dim=128)}}}
 
 
 def _thread_world(kind: str, spec: dict, world: int, out_path: str) -> None:
@@ -3196,12 +3328,20 @@ def run_world(kind: str, spec: dict, world: int) -> dict:
 
 
 def sharded_config(spec: dict, *, replay: bool = False):
-    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs import MLAConfig, get_config, reduce_config
 
     if replay:
-        return reduce_config(get_config(spec["arch"]), dtype="float32",
-                             **spec["replay"]["widths"])
+        widths = dict(spec["replay"]["widths"])
+        if "mla" in widths:
+            widths["mla"] = MLAConfig(**widths["mla"])
+        return reduce_config(get_config(spec["arch"]), dtype="float32", **widths)
     return ranks.depth_config(spec["arch"], spec["layers"])
+
+
+def sharded_tags(spec: dict) -> tuple:
+    """The runs of a sharded-training spec: at published widths ("full",
+    when it names a depth) and the f32 replay."""
+    return (("full",) if spec.get("layers") else ()) + (("replay",) if "replay" in spec else ())
 
 
 def setup_train_sharded(spec: dict) -> dict:
@@ -3212,7 +3352,8 @@ def setup_train_sharded(spec: dict) -> dict:
     from repro_torch.models.transformer import Model
 
     out = {}
-    for tag, replay in (("full", False), ("replay", True)):
+    for tag in sharded_tags(spec):
+        replay = tag == "replay"
         cfg = sharded_config(spec, replay=replay)
         r = spec["replay"] if replay else spec
         params = Model(cfg, device=DEVICE).init(spec["seed"])
@@ -3230,9 +3371,10 @@ def rank_train_sharded(rank: int, world: int, spec: dict, shared: dict) -> dict:
 
     mesh = make_mesh(spec["mesh"], ("data", "model"), device=DEVICE)
     out = {}
-    for tag in ("full", "replay"):
+    for tag in sharded_tags(spec):
         s = shared[tag]
-        params = ranks.module_with(s["cfg"], shard_params(s["params"], mesh))
+        params = ranks.module_with(s["cfg"], shard_params(
+            s["params"], mesh, expert_mode=spec.get("expert_mode", "ep_model")))
         if tag == "full":
             torch.cuda.reset_peak_memory_stats()
         run = ranks.train_run(s["cfg"], params, s["batches"], spec["lr"], mesh=mesh,
@@ -3269,20 +3411,43 @@ def step1_changes(before: dict, got: dict, want: dict) -> dict:
             "still_leaves": still, "still_moved": moved}
 
 
+def f32_distances(spec: dict, s: dict, got: dict, ref: dict) -> dict:
+    """Step 1 of the unsharded run again with the same weights in float32 on
+    the card: how far the sharded and the unsharded bf16 steps each are
+    from it (gradient norm, relative; each leaf's step-1 change, as
+    ``step1_changes``), so that a difference between the two bf16 runs can
+    be told from bf16 rounding."""
+    cfg = dataclasses.replace(s["cfg"], dtype="float32")
+    on_card = {k: t.to(DEVICE, torch.float32) for k, t in s["params"].items()}
+    run = ranks.train_run(cfg, ranks.module_with(cfg, on_card), s["batches"][:1],
+                          spec["lr"], step1="keep")
+    gn = run["steps"][0]["grad_norm"]
+    out = {"grad_norm": gn}
+    for name, res in (("sharded", got), ("unsharded", ref)):
+        ch = step1_changes(s["params"], res["step1"], run["step1"])
+        out[name] = {"grad_norm_rel": abs(res["steps"][0]["grad_norm"] - gn) / gn,
+                     "change_rel": ch["change_rel"], "change_rel_leaf": ch["change_rel_leaf"]}
+    del run, on_card
+    return out
+
+
 def after_train_sharded(spec: dict, shared: dict, results: list) -> dict:
-    """The unsharded reference runs on the card (the ranks are done), and
-    the sharded results are held to it."""
+    """The unsharded reference runs on the card (the ranks are done), or on
+    the CPU for a replay that says so, and the sharded results are held to
+    it."""
     import gc
 
     gc.collect()
     torch.cuda.empty_cache()
     out = {}
-    for tag in ("replay", "full"):
+    for tag in reversed(sharded_tags(spec)):
         s = shared[tag]
+        dev = spec["replay"].get("device", DEVICE) if tag == "replay" else DEVICE
         torch.cuda.reset_peak_memory_stats()
-        on_card = {k: t.to(DEVICE) for k, t in s["params"].items()}
-        ref = ranks.train_run(s["cfg"], ranks.module_with(s["cfg"], on_card), s["batches"],
-                              spec["lr"], step1="keep",
+        on_dev = {k: t.to(dev, copy=True) for k, t in s["params"].items()}
+        batches = [{k: v.to(dev) for k, v in b.items()} for b in s["batches"]]
+        ref = ranks.train_run(s["cfg"], ranks.module_with(s["cfg"], on_dev), batches,
+                              spec["lr"], step1="keep", device=dev,
                               vocab_chunk=spec["ref_vocab_chunk"] if tag == "full" else 0)
         ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         got = results[0][tag]
@@ -3290,14 +3455,16 @@ def after_train_sharded(spec: dict, shared: dict, results: list) -> dict:
                 "grad_norm_rel": max(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
                                      for a, b in zip(got["steps"], ref["steps"]))}
         errs.update(step1_changes(s["params"], got["step1"], ref["step1"]))
+        if tag == "full" and spec.get("f32_reference"):
+            errs["f32"] = f32_distances(spec, s, got, ref)
         got["step1"] = ref["step1"] = None
         if tag == "replay":
             errs["loss_rel"] = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
                                    for a, b in zip(got["steps"], ref["steps"]))
         out[tag] = {"errs": errs, "ref_steps": [{k: st[k] for k in ("loss", "grad_norm", "seconds")}
                                                 for st in ref["steps"]],
-                    "ref_peak_gb": ref["peak_gb"]}
-        del ref, on_card
+                    "ref_peak_gb": ref["peak_gb"], "ref_device": dev}
+        del ref, on_dev, batches
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -3318,17 +3485,10 @@ def phase_train_sharded() -> dict:
     seconds = time.perf_counter() - t0
     results, after = out["results"], out["after"]
     layers = spec["layers"]
-    want = {"flash_attention_kernel": 2 * layers, "flash_attention_kernel.tensor_cores": 2 * layers,
-            "flash_attention_kernel.cuda_cores": 0, "flash_attention_bwd_kernel": layers,
-            "flash_attention_bwd_kernel.tensor_cores": layers,
-            "flash_attention_bwd_kernel.cuda_cores": 0}
-    r_layers = sharded_config(spec, replay=True).n_layers
-    want_replay = {"flash_attention_kernel": 2 * r_layers,
-                   "flash_attention_kernel.tensor_cores": 0,
-                   "flash_attention_kernel.cuda_cores": 2 * r_layers,
-                   "flash_attention_bwd_kernel": r_layers,
-                   "flash_attention_bwd_kernel.tensor_cores": 0,
-                   "flash_attention_bwd_kernel.cuda_cores": r_layers}
+    # B4 2 x layers (tensor cores) and B4-bwd once a layer; the replay on the CUDA cores
+    want = ranks.step_launches(sharded_config(spec), spec["seq_len"])
+    want_replay = ranks.step_launches(sharded_config(spec, replay=True),
+                                      spec["replay"]["seq_len"])
     for rank, res in enumerate(results):
         for tag, expect in (("full", want), ("replay", want_replay)):
             for i, st in enumerate(res[tag]["steps"]):
@@ -3384,6 +3544,88 @@ def phase_train_sharded() -> dict:
                     for res in results for st in res["full"]["steps"])},
             "seconds": seconds}
 
+
+
+def sharded_family_run(spec: dict) -> dict:
+    """One spec of phase ``train_sharded_families``: its world of four
+    thread ranks, every rank's launches each step against
+    ``ranks.step_launches``, and the errors against the unsharded runs
+    within the spec's limits."""
+    world = spec["mesh"][0] * spec["mesh"][1]
+    t0 = time.perf_counter()
+    out = run_world("train_sharded", spec, world)
+    seconds = time.perf_counter() - t0
+    results, after = out["results"], out["after"]
+    res = {"arch": spec["arch"], "mesh": {"data": spec["mesh"][0], "model": spec["mesh"][1]},
+           "expert_mode": spec.get("expert_mode"), "seconds": seconds, "main_path_launches": {}}
+    for tag in sharded_tags(spec):
+        replay = tag == "replay"
+        r = spec["replay"] if replay else spec
+        cfg = sharded_config(spec, replay=replay)
+        want = ranks.step_launches(cfg, r["seq_len"])
+        for rank, rank_res in enumerate(results):
+            for i, st in enumerate(rank_res[tag]["steps"]):
+                if st["launches"] != want:
+                    raise AssertionError(f"{spec['arch']} {tag}: rank {rank} step {i} launched "
+                                         f"{st['launches']}, expected {want}")
+        for k in want:
+            res["main_path_launches"][k] = res["main_path_launches"].get(k, 0) + sum(
+                st["launches"][k] for rank_res in results for st in rank_res[tag]["steps"])
+        errs = after[tag]["errs"]
+        steps = results[0][tag]["steps"]
+        row = {"seq_len": r["seq_len"], "global_batch": r["global_batch"],
+               "dtype": cfg.dtype, "layers": cfg.n_layers,
+               "losses": [st["loss"] for st in steps],
+               "ref_losses": [st["loss"] for st in after[tag]["ref_steps"]],
+               "grad_norms": [st["grad_norm"] for st in steps],
+               "ref_grad_norms": [st["grad_norm"] for st in after[tag]["ref_steps"]],
+               "ref_device": after[tag]["ref_device"], "errors": errs,
+               "launches_per_rank_step": want}
+        if replay:
+            bounds = {"loss_rel": r["rtol"], "grad_norm_rel": r["rtol"],
+                      "change_rel": r["change_rtol"]}
+        else:
+            bounds = {"loss": spec["loss_tol"], "param_step1": spec["param_tol"],
+                      "grad_norm_rel": spec["grad_norm_rtol"], "change_rel": spec["change_rtol"]}
+            tokens = r["seq_len"] * r["global_batch"]
+            step_s = [max(rr[tag]["steps"][i]["seconds"] for rr in results)
+                      for i in range(len(steps))]
+            ref_s = [st["seconds"] for st in after[tag]["ref_steps"]]
+            row.update({"step_seconds": step_s, "ref_step_seconds": ref_s,
+                        "tokens_per_s": tokens * (len(steps) - 1) / sum(step_s[1:]),
+                        "ref_tokens_per_s": tokens * (len(ref_s) - 1) / sum(ref_s[1:]),
+                        "peak_gb_process": max(rr[tag]["peak_gb"] for rr in results),
+                        "state_gb_per_rank": [rr[tag]["state_bytes"] / 1e9 for rr in results],
+                        "ref_peak_gb": after[tag]["ref_peak_gb"],
+                        "collectives_per_rank_step": steps[-1]["collectives"]})
+        bad = {k: errs[k] for k, b in bounds.items() if not errs[k] <= b}
+        if "f32" in errs:   # within f32_slack x the unsharded step's f32 distance
+            f32, slack = errs["f32"], spec["f32_slack"]
+            for key in ("grad_norm_rel", "change_rel"):
+                if not f32["sharded"][key] <= slack * f32["unsharded"][key]:
+                    bad[f"f32_{key}"] = (f32["sharded"][key], f32["unsharded"][key])
+        if bad or errs["still_moved"]:
+            raise AssertionError(f"{spec['arch']} {tag}: sharded vs unsharded {errs}, "
+                                 f"bounds {bounds}")
+        row["bounds"] = {**bounds, "still_moved": 0}
+        res[tag] = row
+    return res
+
+
+def phase_train_sharded_families() -> dict:
+    """The hybrid and MoE families trained sharded on the card
+    (TRAIN_SHARDED_HYBRID, TRAIN_SHARDED_MLA): B5 and B5-bwd on each rank's
+    Mamba2 heads, B4 and B4-bwd on its shared-block heads and on MLA's
+    (192, 128) heads, each rank's launches read around each step."""
+    runs = [sharded_family_run(spec) for spec in (TRAIN_SHARDED_HYBRID, TRAIN_SHARDED_MLA)]
+    total = {}
+    for run in runs:
+        for k, n in run["main_path_launches"].items():
+            total[k] = total.get(k, 0) + n
+    return {"phase": "train_sharded_families",
+            "backend": "threaded (4 ranks as threads on cuda:0)",
+            "runs": runs, "main_path_launches": total,
+            "seconds": sum(run["seconds"] for run in runs)}
 
 
 def after_pipeline(spec: dict, shared: dict, results: list) -> dict:
@@ -3576,6 +3818,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = phase_train_sharded()  # each rank resets and reads its counters around each step
     emit(sharded)
+    families_sharded = phase_train_sharded_families()  # the same, for each spec's runs
+    emit(families_sharded)
+    for name in ("mamba_chunk_scan_kernel", "mamba_chunk_scan_bwd_kernel",
+                 "flash_attention_kernel", "flash_attention_bwd_kernel"):
+        if families_sharded["main_path_launches"][name] <= 0:
+            raise AssertionError(f"train_sharded_families never launched {name}")
     piped = phase_pipeline()  # each rank resets and reads its counters around each run
     emit(piped)
 
@@ -3678,6 +3926,10 @@ def main() -> int:
         "step_us": {str(n_a): step_a * 1e3, str(n_b): step_b * 1e3},
         "estimated_kernel_ms": sum(s * step_ms(n) for n, s in min_cut["absorb_steps_by_n"]),
         "path_ms": path["seconds"] * 1e3}
+    for entry in kernels["kernels"]:  # B4, B4-bwd, B5, B5-bwd on local shards
+        if entry["name"] in families_sharded["main_path_launches"]:
+            entry["launches_train_sharded_families"] = (
+                families_sharded["main_path_launches"][entry["name"]])
     for entry in kernels["kernels"]:
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} was launched on no path")

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_kernel
@@ -32,7 +33,7 @@ from repro_torch.kernels.mcop_phase import (
     PHASE_MAX_N, LoopState, mcop_phase_step, require_device,
 )
 
-__all__ = ["flash_attention", "mamba_chunk_scan", "mcop_min_cut"]
+__all__ = ["flash_attention", "gqa_local_kv", "mamba_chunk_scan", "mcop_min_cut"]
 
 
 def flash_attention(
@@ -67,11 +68,16 @@ def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, *, causal: bool
     function.  q's layout decides: each mesh dimension keeps ``Shard(0)``
     (batch) or ``Shard(2)`` (heads) or is ``Replicate()``; a ``Partial``
     is reduced first.  A sharded sequence or head width is refused: the
-    scores of one row would span ranks.  k and v are brought to q's
-    layout.  Query heads shard in contiguous blocks, and so do the kv heads,
-    so GQA's head ``h`` → kv head ``h // rep`` holds on each shard by local
-    index as long as the head-sharding axes divide the kv heads; otherwise
-    it is refused (a kv head split across ranks)."""
+    scores of one row would span ranks.
+
+    When the head-sharding axes divide both the query and the kv heads,
+    k and v are brought to q's layout: query heads shard in contiguous
+    blocks and so do the kv heads, so GQA's head ``h`` -> kv head ``h //
+    rep`` holds on each shard by local index.  Otherwise
+    (:func:`_flash_attention_gqa_uneven`) q's heads are chunked over those
+    axes and over ``"model"`` where q is whole (unevenly, as ``torch.chunk``
+    splits them), k and v are replicated over them, and each rank takes the
+    kv heads its query heads need by global index."""
     mesh = q.device_mesh
     heads, kv_heads = q.shape[2], k.shape[2]
     layout, split = [], 1
@@ -85,9 +91,12 @@ def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, *, causal: bool
         elif isinstance(p, Shard) and p.dim == 2:
             split *= mesh.size(i)
         layout.append(p)
-    if heads % split or kv_heads % split:
-        raise ValueError(f"flash_attention: {heads} query and {kv_heads} kv heads do not "
-                         f"split into {split} shards of whole GQA groups")
+    names = mesh.mesh_dim_names or ()
+    whole_over_model = ("model" in names and mesh.size(names.index("model")) > 1
+                        and layout[names.index("model")] == Replicate())
+    if heads % split or kv_heads % split or whole_over_model:
+        return _flash_attention_gqa_uneven(q, k, v, layout, causal=causal, window=window,
+                                           scale=scale)
     layout = tuple(layout)
     q, k, v = (t.redistribute(mesh, layout) for t in (q, k, v))
 
@@ -96,6 +105,70 @@ def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, *, causal: bool
 
     return local_map(local, out_placements=(layout,), in_placements=(layout, layout, layout),
                      device_mesh=mesh)(q, k, v)[0]
+
+
+def _flash_attention_gqa_uneven(q: DTensor, k: DTensor, v: DTensor, layout: list, *,
+                                causal: bool, window: int | None,
+                                scale: float | None) -> DTensor:
+    """GQA whose heads the head-sharding axes do not split into whole groups
+    (qwen2-7b's 28 query / 4 kv heads over ``model = 16``).
+
+    q's heads are chunked over the head axes (``torch.chunk``'s uneven
+    split: 28 over 16 ranks is 2 a rank on 14 ranks and 0 on the last 2); k
+    and v are replicated over them, and their gradients are the sum of the
+    ranks' parts (``Partial``).  A rank holding query heads ``h0 .. h1 - 1``
+    needs kv heads ``h // rep`` for each: a contiguous range when every kv
+    head in it serves the same number of the rank's heads (a view, with
+    that number as the local ``rep``), else the heads gathered one per
+    query head (``rep`` 1).  A rank with no head launches nothing; its
+    output, empty, still depends on its inputs, so that every rank runs the
+    same backward."""
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names or ()
+    q_pl = list(layout)
+    if "model" in names and q_pl[names.index("model")] == Replicate():
+        q_pl[names.index("model")] = Shard(2)
+    q_pl = tuple(q_pl)
+    kv_pl = tuple(Replicate() if p == Shard(2) else p for p in q_pl)
+    kv_grad = tuple(Partial() if p == Shard(2) else p for p in q_pl)
+    heads, kv_heads = q.shape[2], k.shape[2]
+    if heads % kv_heads:
+        raise ValueError(f"flash_attention: {heads} query heads over {kv_heads} kv heads")
+    rep = heads // kv_heads
+    q = q.redistribute(mesh, q_pl)
+    k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
+    local_shape, offset = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    h0, nh = offset[2], local_shape[2]
+    ql = q.to_local()
+    kl, vl = k.to_local(grad_placements=kv_grad), v.to_local(grad_placements=kv_grad)
+    b, sq = ql.shape[0], ql.shape[1]
+    if nh == 0:
+        zero = (kl.sum() + vl.sum()) * 0 + ql.sum()
+        out = zero.to(ql.dtype).expand(b, sq, 0, vl.shape[-1])
+    else:
+        kl, vl = gqa_local_kv(kl, vl, h0, nh, rep)
+        out = flash_attention(ql, kl, vl, causal=causal, window=window, scale=scale)
+    shape = (q.shape[0], q.shape[1], heads, v.shape[-1])
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def gqa_local_kv(k: torch.Tensor, v: torch.Tensor, h0: int, nh: int,
+                 rep: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads (model layout, ``(B, S, Hkv, hd)``) that query heads
+    ``h0 .. h0 + nh - 1`` of a GQA of ``rep`` query heads a kv head need,
+    so that B4 over the local query heads and these reads the same keys:
+    a contiguous range when each kv head in it serves the same number of
+    the local heads (a view; that number is the local ``rep``), else one kv
+    head per query head (``rep`` 1, a copy)."""
+    idx = (h0 + np.arange(nh)) // rep
+    counts = np.bincount(idx - idx[0])
+    if (counts == counts[0]).all():
+        sel = slice(int(idx[0]), int(idx[-1]) + 1)
+        return k[:, :, sel], v[:, :, sel]
+    at = torch.as_tensor(idx, device=k.device)
+    return k.index_select(2, at), v.index_select(2, at)
 
 
 def mamba_chunk_scan(
@@ -109,7 +182,12 @@ def mamba_chunk_scan(
     chunk: int = 256,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(y (B, S, H, P), h (B, H, P, N))``, float32.  ``S`` must be
-    a multiple of ``min(chunk, S)``."""
+    a multiple of ``min(chunk, S)``.
+
+    DTensors run the same call on each rank's local shard
+    (:func:`_mamba_chunk_scan_sharded`)."""
+    if isinstance(x, DTensor):
+        return _mamba_chunk_scan_sharded(x, dt, ld, bm, cm, h0, chunk=chunk)
     b, s, h, p = x.shape
     n = bm.shape[-1]
     q = min(chunk, s)
@@ -130,6 +208,45 @@ def mamba_chunk_scan(
     else:
         y, h_final = mamba_chunk_scan_kernel(*args)
     return y.permute(0, 2, 3, 1, 4).reshape(b, s, h, p), h_final
+
+
+def _mamba_chunk_scan_sharded(x: DTensor, dt: DTensor, ld: DTensor, bm: DTensor,
+                              cm: DTensor, h0: DTensor, *, chunk: int):
+    """:func:`mamba_chunk_scan` of DTensors, on local shards.
+
+    The scan is independent across the batch and across heads, and every
+    head reads all of B and C.  x's layout decides: each mesh dimension
+    keeps ``Shard(0)`` (batch) or ``Shard(2)`` (heads) or is
+    ``Replicate()``; a sharded sequence or head width is refused (the
+    recurrence would span ranks).  dt and the log decay take x's layout, B
+    and C are whole over the head axes (their gradient the sum of the
+    ranks' heads': ``Partial``), and the states ``h0`` and ``h`` are
+    ``(B, H, P, N)`` sharded on H.  Each rank runs B5 (and B5-bwd) on its
+    batch and heads."""
+    mesh = x.device_mesh
+    layout = []
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Partial):
+            p = Replicate()
+        elif isinstance(p, Shard) and p.dim not in (0, 2):
+            raise ValueError(
+                f"mamba_chunk_scan: x's dimension {p.dim} (the sequence or head width) is "
+                f"sharded over {mesh.mesh_dim_names[i]!r}; gather it first")
+        layout.append(p)
+    x_pl = tuple(layout)
+    bc_pl = tuple(Replicate() if p == Shard(2) else p for p in x_pl)
+    bc_grad = tuple(Partial() if p == Shard(2) else p for p in x_pl)
+    h_pl = tuple(Shard(1) if p == Shard(2) else p for p in x_pl)
+
+    def local(xl, dtl, ldl, bl, cl, hl):
+        return mamba_chunk_scan(xl, dtl, ldl, bl, cl, hl, chunk=chunk)
+
+    args = [t.redistribute(mesh, pl) for t, pl in
+            zip((x, dt, ld, bm, cm, h0), (x_pl, x_pl, x_pl, bc_pl, bc_pl, h_pl))]
+    return local_map(local, out_placements=(x_pl, h_pl),
+                     in_placements=(x_pl, x_pl, x_pl, bc_pl, bc_pl, h_pl),
+                     in_grad_placements=(x_pl, x_pl, x_pl, bc_grad, bc_grad, h_pl),
+                     device_mesh=mesh)(*args)
 
 
 def mcop_min_cut(

@@ -10,11 +10,11 @@ placements (``runtime.sharding``) where JAX has ``NamedSharding``\\ s,
 leaf for leaf the reference's.
 
 ``step_fn`` runs on real DTensors (the arguments placed by
-``in_shardings``) for the dense family's training cell: gradients
+``in_shardings``) for the training cell of every family: gradients
 accumulated over ``n_micro`` microbatches, then AdamW, as the JAX cell.
-The other families' training steps and every serving step raise
-``NotImplementedError``: their sharded steps come with the dry run
-(ROADMAP, Queue A item 14c).
+The serving steps, and only they, raise ``NotImplementedError``: the
+prefill and decode cells come next (ROADMAP, Queue A item 14d), then the
+dry run that lowers both kinds.
 """
 
 from __future__ import annotations
@@ -29,10 +29,7 @@ from repro_torch.data.pipeline import make_batch_shapes
 from repro_torch.models.transformer import Model, build_model
 from repro_torch.runtime import sharding as shard_lib
 
-__all__ = ["CellSpec", "build_cell", "SHARDED_STEP_FAMILIES"]
-
-# families whose sharded training step runs (the rest: ROADMAP item 14c)
-SHARDED_STEP_FAMILIES = ("dense",)
+__all__ = ["CellSpec", "build_cell"]
 
 
 @dataclasses.dataclass
@@ -61,7 +58,7 @@ def _not_yet(cfg: ModelConfig, kind: str):
     def step(*args):
         raise NotImplementedError(
             f"the sharded {kind} step of the {cfg.family} family ({cfg.name}) is not "
-            "ported yet (ROADMAP, Queue A item 14c)")
+            "ported yet (ROADMAP, Queue A item 14d)")
     return step
 
 
@@ -100,15 +97,12 @@ def build_cell(
         o_fsdp = fsdp in (True, "zero1")
         moments = shard_lib.param_shardings(params, mesh, fsdp=o_fsdp, expert_mode=expert_mode)
         o_shard = {"mu": moments, "nu": dict(moments), "step": repl}
-        if cfg.family in SHARDED_STEP_FAMILIES:
-            step = make_train_step(model.train_loss,
-                                   TrainConfig(optimizer=AdamWConfig(), n_micro=n_micro))
+        step = make_train_step(model.train_loss,
+                               TrainConfig(optimizer=AdamWConfig(), n_micro=n_micro))
 
-            def train_step(params, opt_state, batch):
-                params, opt_state, _, m = step(params, opt_state, None, batch, None)
-                return params, opt_state, m["loss"], m["grad_norm"]
-        else:
-            train_step = _not_yet(cfg, "train")
+        def train_step(params, opt_state, batch):
+            params, opt_state, _, m = step(params, opt_state, None, batch, None)
+            return params, opt_state, m["loss"], m["grad_norm"]
         return CellSpec(
             model=model, kind="train",
             arg_shapes=(params, o_shapes, batch_shapes),

@@ -154,7 +154,8 @@ def _train(args: argparse.Namespace, hooks) -> dict:
             store.save_async(step + 1, train_tree(state), extra={"arch": cfg.name})
     if store:
         store.wait()
-        store.save(args.steps, train_tree(state), extra={"arch": cfg.name})
+        if not (history and args.ckpt_every and args.steps % args.ckpt_every == 0):
+            store.save(args.steps, train_tree(state), extra={"arch": cfg.name})
     losses = [h["loss"] for h in history]
     if losses:
         print(f"[train] done: loss {losses[0]:.4f} -> {losses[-1]:.4f} "

@@ -248,13 +248,12 @@ def attention_forward(
     computes there and then ignores, are skipped."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(p.wq, x).reshape(b, s, cfg.n_heads, hd)
+    q = common.split_heads(linear(p.wq, x), cfg.n_heads)
     cross_cached = cache is not None and kv_source is not None
     if not cross_cached:
         kv_in = x if kv_source is None else kv_source
-        sk = kv_in.shape[1]
-        k = linear(p.wk, kv_in).reshape(b, sk, cfg.n_kv_heads, hd)
-        v = linear(p.wv, kv_in).reshape(b, sk, cfg.n_kv_heads, hd)
+        k = common.split_heads(linear(p.wk, kv_in), cfg.n_kv_heads)
+        v = common.split_heads(linear(p.wv, kv_in), cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, eps=cfg.norm_eps)
         if not cross_cached:
@@ -334,8 +333,7 @@ def attention_forward(
         attn = chunked_attention if use_chunked else naive_attention
         out = attn(q, k, v, mask_kind=mask_kind, window=window)
 
-    out = out.reshape(b, s, cfg.n_heads * hd)
-    return linear(p.wo, out), new_cache
+    return linear(p.wo, common.merge_heads(out)), new_cache
 
 
 # ----------------------------------------------------------------------

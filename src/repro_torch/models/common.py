@@ -48,8 +48,11 @@ __all__ = [
     "softmax_cross_entropy_chunked",
     "replicated_like",
     "layout_of",
+    "split_heads",
+    "merge_heads",
     "embed_lookup",
     "SumAcross",
+    "GradIf",
 ]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -218,6 +221,37 @@ def layout_of(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _whole_over_uneven(t: torch.Tensor, dim: int, units: int) -> torch.Tensor:
+    """A DTensor ``t`` with dimension ``dim`` gathered over every mesh
+    dimension whose shards do not hold whole ``units`` of it; else ``t``."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh, dim = t.device_mesh, dim % t.ndim
+    split = math.prod(mesh.size(i) for i, p in enumerate(t.placements) if p == Shard(dim))
+    if units % split == 0:
+        return t
+    pl = tuple(Replicate() if p == Shard(dim) else p for p in t.placements)
+    return t.redistribute(mesh, pl)
+
+
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, H·hd) -> (B, S, H, hd).  A DTensor whose last dimension is
+    split over ranks in pieces that are not whole heads (28 heads over
+    ``model = 16``) is gathered over those ranks first: DTensor cannot
+    unflatten an uneven split, and attention re-splits the heads
+    (``kernels.ops.flash_attention``)."""
+    t = _whole_over_uneven(t, -1, heads)
+    return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H·hd); a DTensor whose heads are split
+    unevenly over ranks is gathered over them first (see
+    :func:`split_heads`)."""
+    t = _whole_over_uneven(t, 2, t.shape[2])
+    return t.reshape(*t.shape[:2], t.shape[2] * t.shape[3])
+
+
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Rotate the two halves of the last axis (neox style) by the angles."""
     x1, x2 = torch.chunk(x, 2, dim=-1)
@@ -289,6 +323,24 @@ class SumAcross(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class GradIf(torch.autograd.Function):
+    """``t`` itself; its gradient passes where ``keep``, else is zero:
+    ``GradIf.apply(t, keep)``.  A value that every rank of a group computes
+    alike takes its gradient on one of them, so that the group's gradients
+    sum to it once; every rank keeps the same graph (a tensor detached on
+    some ranks only would leave their backward without the collectives the
+    others wait in)."""
+
+    @staticmethod
+    def forward(ctx, t, keep: bool):
+        ctx.keep = keep
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None
 
 
 # token rows of the vocab-parallel loss taken at a time: (rows, V/ranks)

@@ -25,6 +25,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -100,16 +102,9 @@ def init_mamba2(gen, cfg: ModelConfig, *, device) -> Mamba2:
     )
 
 
-def _mamba_project(cfg: ModelConfig, p: Mamba2, x: torch.Tensor):
-    """Shared input path: the in-projection split into (z, xBC, dt)."""
-    d_inner, n_heads, n_state = _mamba_dims(cfg)
-    zxbcdt = linear(p.in_proj, x)
-    z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * n_state, n_heads], dim=-1)
-    return z, xbc, dt_raw
-
-
 def _causal_conv(
-    p: Mamba2,
+    w: torch.Tensor,                       # (K, C)
+    bias: torch.Tensor,                    # (C,)
     xbc: torch.Tensor,
     conv_state: torch.Tensor | None,
     valid_len: int | None = None,
@@ -122,7 +117,6 @@ def _causal_conv(
     holds the last K−1 *real* inputs so decode continues after a padded
     prefill.
     """
-    w = p.conv_w  # (K, C)
     k = w.shape[0]
     if conv_state is None:
         pad = torch.zeros((xbc.shape[0], k - 1, xbc.shape[2]), dtype=xbc.dtype,
@@ -134,7 +128,7 @@ def _causal_conv(
     out = xp[:, 0:s] * w[0].to(xbc.dtype)
     for i in range(1, k):
         out = out + xp[:, i:i + s] * w[i].to(xbc.dtype)
-    out = F.silu(out + p.conv_b.to(xbc.dtype))
+    out = F.silu(out + bias.to(xbc.dtype))
     if k > 1:
         if valid_len is not None and valid_len != s:
             new_state = xp[:, valid_len:valid_len + k - 1]
@@ -143,11 +137,6 @@ def _causal_conv(
     else:
         new_state = pad
     return out, new_state
-
-
-def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
-    d_inner, n_heads, n_state = _mamba_dims(cfg)
-    return torch.split(xbc, [d_inner, n_state, n_state], dim=-1)
 
 
 def mamba2_forward(
@@ -161,37 +150,138 @@ def mamba2_forward(
     Sequences that don't divide the chunk are right-padded internally;
     padded steps get dt = 0 (no decay, no input contribution), so the
     final state is exactly the state after the real tokens.
+
+    A DTensor ``x`` (parameters placed by ``runtime.sharding``) takes
+    :func:`_mamba2_forward_sharded`; it runs without a state and returns
+    the final SSM state alone (``conv`` None).
     """
+    if isinstance(x, DTensor):
+        if state is not None:
+            raise ValueError("the sharded Mamba2 layer runs from an empty state")
+        return _mamba2_forward_sharded(cfg, p, x)
     bsz, s_in, _ = x.shape
     d_inner, n_heads, n_state = _mamba_dims(cfg)
     hd = cfg.mamba_headdim
-    q = min(cfg.ssm_chunk, s_in)
-    pad = (-s_in) % q
-    if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-    s = s_in + pad
-
-    z, xbc, dt_raw = _mamba_project(cfg, p, x)
-    xbc, conv_state = _causal_conv(p, xbc, state.conv if state is not None else None,
-                                   valid_len=s_in)
-    xs, b, c = _split_xbc(cfg, xbc)
-
-    dt = F.softplus(dt_raw.to(torch.float32) + p.dt_bias)              # (B,S,H)
-    if pad:
-        dt = dt * (torch.arange(s, device=x.device) < s_in)[None, :, None]
-    a = -torch.exp(p.a_log)                                             # (H,)
-    log_decay = dt * a                                                  # (B,S,H)
-
-    xh = xs.reshape(bsz, s, n_heads, hd)
+    z, xh, dt, log_decay, b, c, conv_state = _mamba_in(
+        cfg, (0, n_heads), True, x, p.in_proj.w, p.conv_w, p.conv_b, p.dt_bias, p.a_log,
+        state.conv if state is not None else None)
+    s = xh.shape[1]
     h0 = (state.h if state is not None
           else torch.zeros((bsz, n_heads, hd, n_state), dtype=torch.float32, device=x.device))
-    y, h_final = ops.mamba_chunk_scan(xh, dt, log_decay, b, c, h0, chunk=q)
+    y, h_final = ops.mamba_chunk_scan(xh, dt, log_decay, b, c, h0, chunk=min(cfg.ssm_chunk, s_in))
 
     y = y + p.d_skip[None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
     y = common.rmsnorm(p.norm, y * F.silu(z), eps=cfg.norm_eps)
-    y = y[:, :s_in] if pad else y
+    y = y[:, :s_in] if s != s_in else y
     return linear(p.out_proj, y), MambaState(h=h_final, conv=conv_state)
+
+
+def _mamba_in(cfg: ModelConfig, heads: tuple[int, int], lead: bool, x, w, conv_w, conv_b,
+              dt_bias, a_log, conv_state=None):
+    """The Mamba2 input path of the heads ``heads = (h0, h1)`` (all of
+    them unsharded, a rank's on a mesh): ``x`` right-padded to whole chunks
+    (padded steps get dt = 0: no decay, no input), then z, x (after the
+    depthwise causal conv, ``(B, S, h1 - h0, P)``), dt and the log decay of
+    those heads, and B and C, which every head needs; and the conv state
+    (the last K-1 real inputs of the heads' x channels and of B and C).
+    in_proj's columns are z, x, B, C, dt and the conv's channels x, B, C;
+    the weights come whole and only these heads' columns (and channels) are
+    used.  B and C's gradient is taken on the ``lead`` rank of the ranks
+    that compute them alike (elsewhere it is zero, ``common.GradIf``), so
+    that each rank's gradient is its part of the sum: its heads', and on
+    the lead rank B's and C's."""
+    d_inner, _, n_state = _mamba_dims(cfg)
+    hd = cfg.mamba_headdim
+    h0, h1 = heads
+    c0, c1 = h0 * hd, h1 * hd
+    s_in = x.shape[1]
+    q = min(cfg.ssm_chunk, s_in)
+    pad = (-s_in) % q
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    bc = slice(2 * d_inner, 2 * d_inner + 2 * n_state)
+    dt_cols = slice(2 * d_inner + 2 * n_state + h0, 2 * d_inner + 2 * n_state + h1)
+    z = x @ w[:, c0:c1]
+    xs = x @ w[:, d_inner + c0:d_inner + c1]
+    dt_raw = x @ w[:, dt_cols]
+    xb, wb, cwb, cbb = (common.GradIf.apply(t, lead) for t in
+                        (x, w[:, bc], conv_w[:, d_inner:], conv_b[d_inner:]))
+    x_state = bc_state = None
+    if conv_state is not None:
+        x_state, bc_state = conv_state[..., c0:c1], conv_state[..., d_inner:]
+    xs, x_state = _causal_conv(conv_w[:, c0:c1], conv_b[c0:c1], xs, x_state, valid_len=s_in)
+    bcm, bc_state = _causal_conv(cwb, cbb, xb @ wb, bc_state, valid_len=s_in)
+    bm, cm = torch.split(bcm, [n_state, n_state], dim=-1)
+    dt = F.softplus(dt_raw.to(torch.float32) + dt_bias[h0:h1])
+    if pad:
+        dt = dt * (torch.arange(x.shape[1], device=x.device) < s_in)[None, :, None]
+    ld = dt * -torch.exp(a_log[h0:h1])
+    return (z, xs.reshape(*xs.shape[:2], h1 - h0, hd), dt, ld, bm, cm,
+            torch.cat([x_state, bc_state], dim=-1))
+
+
+def _mamba2_forward_sharded(cfg: ModelConfig, p: Mamba2, x: DTensor):
+    """:func:`mamba2_forward` of a DTensor ``x`` (the residual stream: the
+    batch over the data axes, whole over ``"model"``).
+
+    ``in_proj``'s columns are split over ``"model"`` by the rules, at
+    points that fall inside z, x, B, C and dt alike (296 columns at the
+    reduced widths, 74 a rank over 4).  So the weight (and the conv's) is
+    gathered whole, and each rank projects the columns of its own heads
+    (the heads split over ``"model"`` when it divides them, else whole on
+    every rank) and B and C, which every head needs
+    (:func:`_mamba_in`, one ``local_map``); each weight's gradient is
+    the sum of the ranks' parts.  The scan runs on each rank's batch and
+    heads (``kernels.ops.mamba_chunk_scan``'s DTensor route: B5 and
+    B5-bwd on local shards).  The skip, the gate, the norm over all of
+    d_inner (its mean of squares summed across the head shards) and the
+    out-projection (its rows split over ``"model"`` as the heads are) are
+    DTensor ops; the output is ``Partial`` over ``"model"``."""
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    _, n_heads, n_state = _mamba_dims(cfg)
+    hd = cfg.mamba_headdim
+    s_in = x.shape[1]
+    split = ("model" in names and mesh.size(names.index("model")) > 1
+             and n_heads % mesh.size(names.index("model")) == 0)
+    x_pl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in x.placements)
+    x = x.redistribute(mesh, x_pl)
+    model_i = names.index("model") if split else None
+    heads_pl = tuple(Shard(2) if i == model_i else pl for i, pl in enumerate(x_pl))
+    whole = tuple(Replicate() for _ in x_pl)
+    summed = tuple(Partial() if pl == Shard(0) or i == model_i else Replicate()
+                   for i, pl in enumerate(x_pl))
+    x_grad = tuple(Partial() if i == model_i else pl for i, pl in enumerate(x_pl))
+    if split:
+        m = mesh.size(model_i)
+        r = mesh.get_local_rank(model_i)
+        heads, lead = (r * n_heads // m, (r + 1) * n_heads // m), r == 0
+    else:
+        heads, lead = (0, n_heads), True
+    weights = tuple(t.redistribute(mesh, whole) for t in
+                    (p.in_proj.w, p.conv_w, p.conv_b, p.dt_bias, p.a_log))
+
+    def local(xl, w, cw, cb, dtb, al):
+        return _mamba_in(cfg, heads, lead, xl, w, cw, cb, dtb, al)[:6]
+
+    z, xh, dt, ld, bm, cm = local_map(
+        local, out_placements=(heads_pl,) * 4 + (x_pl, x_pl),
+        in_placements=(x_pl,) + (whole,) * len(weights),
+        in_grad_placements=(x_grad,) + (summed,) * len(weights),
+        device_mesh=mesh)(x, *weights)
+    b_local = x.to_local().shape[0]
+    h0_pl = tuple(Shard(1) if pl == Shard(2) else pl for pl in heads_pl)
+    h0_local = torch.zeros((b_local, heads[1] - heads[0], hd, n_state), dtype=torch.float32,
+                           device=x.to_local().device)
+    h0 = DTensor.from_local(h0_local, mesh, h0_pl, run_check=False)
+    y, h_final = ops.mamba_chunk_scan(xh, dt, ld, bm, cm, h0, chunk=min(cfg.ssm_chunk, s_in))
+    y = y + p.d_skip[None, None, :, None] * xh.to(torch.float32)
+    y = y.reshape(*y.shape[:2], n_heads * hd).to(x.dtype)
+    y = common.rmsnorm(p.norm, y * F.silu(z), eps=cfg.norm_eps)
+    if y.shape[1] != s_in:
+        y = y[:, :s_in]
+    return linear(p.out_proj, y), MambaState(h=h_final, conv=None)
 
 
 def mamba2_step(
@@ -199,17 +289,13 @@ def mamba2_step(
 ) -> tuple[torch.Tensor, MambaState]:
     """Single-token recurrence (decode path).  x: (B, 1, d)."""
     bsz = x.shape[0]
-    d_inner, n_heads, n_state = _mamba_dims(cfg)
-    hd = cfg.mamba_headdim
-
-    z, xbc, dt_raw = _mamba_project(cfg, p, x)
-    xbc, conv_state = _causal_conv(p, xbc, state.conv)
-    xs, b, c = _split_xbc(cfg, xbc)
-
-    dt = F.softplus(dt_raw.to(torch.float32) + p.dt_bias)[:, 0]           # (B,H)
-    a = -torch.exp(p.a_log)
-    g = torch.exp(dt * a)                                                 # (B,H)
-    xh = xs[:, 0].reshape(bsz, n_heads, hd).to(torch.float32)
+    d_inner, n_heads, _ = _mamba_dims(cfg)
+    z, xh, dt, ld, b, c, conv_state = _mamba_in(
+        cfg, (0, n_heads), True, x, p.in_proj.w, p.conv_w, p.conv_b, p.dt_bias, p.a_log,
+        state.conv)
+    dt = dt[:, 0]                                                         # (B,H)
+    g = torch.exp(ld[:, 0])                                               # (B,H)
+    xh = xh[:, 0].to(torch.float32)
     bv = b[:, 0].to(torch.float32)                                        # (B,N)
     cv = c[:, 0].to(torch.float32)
 
@@ -298,9 +384,9 @@ def _mlstm_qkv(cfg: ModelConfig, p: MLSTM, x: torch.Tensor):
     n_heads, _, hd = _mlstm_dims(cfg)
     f32 = torch.float32
     u = linear(p.w_up, x)                                                  # (B, S, up)
-    q = linear(p.wq, u).reshape(bsz, s, n_heads, hd).to(f32) * (1.0 / math.sqrt(hd))
-    k = linear(p.wk, u).reshape(bsz, s, n_heads, hd).to(f32)
-    v = linear(p.wv, u).reshape(bsz, s, n_heads, hd).to(f32)
+    q = common.split_heads(linear(p.wq, u), n_heads).to(f32) * (1.0 / math.sqrt(hd))
+    k = common.split_heads(linear(p.wk, u), n_heads).to(f32)
+    v = common.split_heads(linear(p.wv, u), n_heads).to(f32)
     i_raw, f_raw = torch.chunk(linear(p.w_if, u.to(f32)), 2, dim=-1)     # (B, S, H) each
     z = F.silu(linear(p.w_gatez, x))                                       # (B, S, up)
     return q, k, v, i_raw, f_raw, z
@@ -313,17 +399,70 @@ def _mlstm_out(cfg: ModelConfig, p: MLSTM, h: torch.Tensor, z: torch.Tensor, dty
 
 def mlstm_forward(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
                   state: XLSTMState | None = None) -> tuple[torch.Tensor, XLSTMState]:
-    """The mLSTM over a sequence, one token at a time.  x: (B, S, d)."""
+    """The mLSTM over a sequence, one token at a time.  x: (B, S, d).
+
+    A DTensor ``x`` runs the recurrence on each rank's batch and heads in
+    one ``local_map`` (:func:`_recurrence_sharded`: a loop of S steps of
+    DTensor ops would dispatch S times a layer); it starts from an empty
+    state and returns no state."""
     bsz, s, _ = x.shape
     _, up, _ = _mlstm_dims(cfg)
     q, k, v, i_raw, f_raw, z = _mlstm_qkv(cfg, p, x)
+    if isinstance(x, DTensor):
+        if state is not None:
+            raise ValueError("the sharded mLSTM runs from an empty state")
+
+        def scan(ql, kl, vl, il, fl):   # the rank's heads of an empty state
+            st = mlstm_init_state(cfg, ql.shape[0], device=ql.device)
+            st = XLSTMState(*(t[:, :ql.shape[2]] for t in st))
+            return _mlstm_loop(ql, kl, vl, il, fl, st)[0]
+
+        h = _recurrence_sharded(scan, q, (q, k, v, i_raw, f_raw), (2, 2, 2, 2, 2), ())
+        return _mlstm_out(cfg, p, common.merge_heads(h), z, x.dtype), None
     st = state if state is not None else mlstm_init_state(cfg, bsz, device=x.device)
+    h, st = _mlstm_loop(q, k, v, i_raw, f_raw, st)
+    return _mlstm_out(cfg, p, h.reshape(bsz, s, up), z, x.dtype), st
+
+
+def _mlstm_loop(q, k, v, i_raw, f_raw, st: XLSTMState):
+    """The mLSTM recurrence over the sequence: (B, S, H, P) hidden states
+    and the final state."""
     hs = []
-    for t in range(s):
+    for t in range(q.shape[1]):
         h, st = _mlstm_inner_step(q[:, t], k[:, t], v[:, t], i_raw[:, t], f_raw[:, t], st)
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(bsz, s, up)
-    return _mlstm_out(cfg, p, h, z, x.dtype), st
+    return torch.stack(hs, dim=1), st
+
+
+def _recurrence_sharded(fn, like: DTensor, args: tuple, head_dims: tuple, params: tuple):
+    """``fn(*local args, *local params)`` -> (B, S, H, P) on each rank's batch
+    and heads, for DTensor ``args`` whose dimension ``head_dims[i]`` holds
+    the heads and parameters whose dimension 1 does.  ``like``'s layout
+    (the batch over the data axes) decides the batch; the heads split over
+    ``"model"`` when it divides them, else every rank takes them all.  A
+    parameter is gathered over the other axes, its gradient the sum of the
+    batch shards' parts."""
+    mesh = like.device_mesh
+    names = mesh.mesh_dim_names or ()
+    n_heads = args[0].shape[head_dims[0]]
+    model_i = names.index("model") if "model" in names else None
+    if model_i is not None and n_heads % mesh.size(model_i):
+        model_i = None
+    batch = [i for i, pl in enumerate(like.placements) if pl == Shard(0)]
+
+    def layout(head_dim: int | None):
+        return tuple(Shard(0) if i in batch else Shard(head_dim)
+                     if i == model_i and head_dim is not None else Replicate()
+                     for i in range(mesh.ndim))
+
+    arg_pl = [layout(hd) for hd in head_dims]
+    par_pl = [tuple(Shard(1) if i == model_i else Replicate() for i in range(mesh.ndim))
+              for _ in params]
+    par_grad = [tuple(Partial() if i in batch else pl for i, pl in enumerate(pl_))
+                for pl_ in par_pl]
+    placed = [t.redistribute(mesh, pl) for t, pl in zip((*args, *params), (*arg_pl, *par_pl))]
+    return local_map(fn, out_placements=(layout(2),), in_placements=(*arg_pl, *par_pl),
+                     in_grad_placements=(*arg_pl, *par_grad), device_mesh=mesh)(*placed)
 
 
 def mlstm_step(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
@@ -381,10 +520,12 @@ def slstm_init_state(cfg: ModelConfig, bsz: int, *, device) -> XLSTMState:
                       h=zeros())
 
 
-def _slstm_inner_step(p: SLSTM, xt: torch.Tensor, state: XLSTMState):
-    """xt: (B, 4, H, P) pre-projected gate inputs."""
-    rec = torch.einsum("ghvp,bhp->bghv", p.r, state.h)        # (B, 4, H, P)
-    pre = xt.to(torch.float32) + rec + p.b[None]
+def _slstm_inner_step(r: torch.Tensor, bias: torch.Tensor, xt: torch.Tensor,
+                      state: XLSTMState):
+    """xt: (B, 4, H, P) pre-projected gate inputs; ``r`` (4, H, P, P) and
+    ``bias`` (4, H, P) the recurrent weights and biases."""
+    rec = torch.einsum("ghvp,bhp->bghv", r, state.h)          # (B, 4, H, P)
+    pre = xt.to(torch.float32) + rec + bias[None]
     i_raw, f_raw, z_raw, o_raw = pre[:, 0], pre[:, 1], pre[:, 2], pre[:, 3]
     log_f = F.logsigmoid(f_raw)
     m_new = torch.maximum(log_f + state.m, i_raw)
@@ -404,16 +545,44 @@ def _slstm_out(cfg: ModelConfig, p: SLSTM, h: torch.Tensor, dtype):
 
 def slstm_forward(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
                   state: XLSTMState | None = None) -> tuple[torch.Tensor, XLSTMState]:
-    """The sLSTM over a sequence, one token at a time.  x: (B, S, d)."""
+    """The sLSTM over a sequence, one token at a time.  x: (B, S, d).
+
+    A DTensor ``x`` runs the recurrence on each rank's batch and heads in
+    one ``local_map`` (:func:`_recurrence_sharded`), with ``r`` and the
+    biases gathered once a layer; it starts from an empty state and
+    returns no state."""
     bsz, s, d = x.shape
     n_heads, hd = _xlstm_dims(cfg)
+    gates = linear(p.w_in, x)
+    if isinstance(x, DTensor):
+        if state is not None:
+            raise ValueError("the sharded sLSTM runs from an empty state")
+        # whole over every rank first: the split of 4·d columns falls
+        # across gates and heads alike
+        gates = gates.redistribute(gates.device_mesh, tuple(
+            pl if pl == Shard(0) else Replicate() for pl in gates.placements))
+        gates = gates.reshape(bsz, s, 4, n_heads, hd)
+
+        def scan(gl, r, bias):   # the rank's heads of an empty state
+            st = slstm_init_state(cfg, gl.shape[0], device=gl.device)
+            st = XLSTMState(*(t[:, :gl.shape[3]] for t in st))
+            return _slstm_loop(r, bias, gl, st)[0]
+
+        h = _recurrence_sharded(scan, x, (gates,), (3,), (p.r, p.b))
+        return _slstm_out(cfg, p, common.merge_heads(h), x.dtype), None
     st = state if state is not None else slstm_init_state(cfg, bsz, device=x.device)
-    gates_in = linear(p.w_in, x).reshape(bsz, s, 4, n_heads, hd)
+    h, st = _slstm_loop(p.r, p.b, gates.reshape(bsz, s, 4, n_heads, hd), st)
+    return _slstm_out(cfg, p, h.reshape(bsz, s, d), x.dtype), st
+
+
+def _slstm_loop(r, bias, gates_in, st: XLSTMState):
+    """The sLSTM recurrence over the sequence: (B, S, H, P) hidden states
+    and the final state."""
     hs = []
-    for t in range(s):
-        h, st = _slstm_inner_step(p, gates_in[:, t], st)
+    for t in range(gates_in.shape[1]):
+        h, st = _slstm_inner_step(r, bias, gates_in[:, t], st)
         hs.append(h)
-    return _slstm_out(cfg, p, torch.stack(hs, dim=1).reshape(bsz, s, d), x.dtype), st
+    return torch.stack(hs, dim=1), st
 
 
 def slstm_step(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
@@ -421,5 +590,5 @@ def slstm_step(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
     """One-token sLSTM decode step.  x: (B, 1, d)."""
     bsz, _, d = x.shape
     n_heads, hd = _xlstm_dims(cfg)
-    h, st = _slstm_inner_step(p, linear(p.w_in, x).reshape(bsz, 4, n_heads, hd), state)
+    h, st = _slstm_inner_step(p.r, p.b, linear(p.w_in, x).reshape(bsz, 4, n_heads, hd), state)
     return _slstm_out(cfg, p, h.reshape(bsz, 1, d), x.dtype), st

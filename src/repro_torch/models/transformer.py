@@ -53,6 +53,7 @@ import math
 import torch
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mcop_phase import require_device
@@ -100,6 +101,10 @@ def _embed_tokens(cfg: ModelConfig, params: nn.Module, batch: dict) -> torch.Ten
         if pb > b or pp > s or pd != d:
             raise ValueError(f"patch embeddings {tuple(patches.shape)} do not fit in the "
                              f"token embeddings {tuple(x.shape)}")
+        if isinstance(x, DTensor) and pb == b:
+            # out of place: DTensor's backward of a slice written in place
+            # into a batch-sharded tensor has no rule
+            return common.layout_of(torch.cat([patches.to(dt), x[:, pp:]], dim=1), tokens)
         x[:pb, :pp] = patches.to(dt)
     return x
 
@@ -282,16 +287,17 @@ def _run_encoder(cfg: ModelConfig, params: EncDecLM, src: torch.Tensor, *,
     """The encoder over frame embeddings (B, S, d), cast to the model's dtype."""
     src = src.to(common.dtype_of(cfg.dtype))
     b, s, d = src.shape
-    x = src + _sinusoidal_positions(s, d, device=src.device).to(src.dtype)[None]
+    pe = _sinusoidal_positions(s, d, device=src.device).to(src.dtype)[None]
+    x = src + common.replicated_like(pe, src)
     pos = torch.arange(s, device=src.device)[None, :].expand(b, s)
     for p in params.enc_blocks:
 
         def block(x, p=p):
             h = rmsnorm(p.ln1, x, eps=cfg.norm_eps)
             a, _ = attn_lib.attention_forward(cfg, p.attn, h, positions=pos, mask_kind="full")
-            x = x + a
+            x = common.layout_of(x + a, x)
             h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
-            return x + ffn.swiglu_forward(p.ffn, h)
+            return common.layout_of(x + ffn.swiglu_forward(p.ffn, h), x)
 
         x = _body(block, remat)(x)
     return rmsnorm(params.enc_norm, x, eps=cfg.norm_eps)
@@ -307,7 +313,8 @@ def _run_decoder_encdec(cfg: ModelConfig, params: EncDecLM, x: torch.Tensor,
     b, s, d = x.shape
     dev = x.device
     length = 0 if cache is None else cache["length"]
-    x = x + _sinusoidal_positions(s, d, offset=length, device=dev).to(x.dtype)[None]
+    pe = _sinusoidal_positions(s, d, offset=length, device=dev).to(x.dtype)[None]
+    x = x + common.replicated_like(pe, x)
     pos = torch.arange(s, device=dev)[None, :].expand(b, s)
     for i, p in enumerate(params.dec_blocks):
 
@@ -316,7 +323,7 @@ def _run_decoder_encdec(cfg: ModelConfig, params: EncDecLM, x: torch.Tensor,
             self_c = (None if cache is None
                       else attn_lib.KVCache(cache["self_k"][i], cache["self_v"][i], length))
             a, _ = attn_lib.attention_forward(cfg, p.self_attn, h, positions=pos, cache=self_c)
-            x = x + a
+            x = common.layout_of(x + a, x)
             h = rmsnorm(p.ln_x, x, eps=cfg.norm_eps)
             if cache is not None:
                 cross_c = attn_lib.KVCache(cache["cross_k"][i], cache["cross_v"][i], 0)
@@ -325,9 +332,9 @@ def _run_decoder_encdec(cfg: ModelConfig, params: EncDecLM, x: torch.Tensor,
             else:
                 a, _ = attn_lib.attention_forward(cfg, p.cross_attn, h, positions=pos,
                                                   kv_source=memory, mask_kind="full")
-            x = x + a
+            x = common.layout_of(x + a, x)
             h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
-            return x + ffn.swiglu_forward(p.ffn, h)
+            return common.layout_of(x + ffn.swiglu_forward(p.ffn, h), x)
 
         x = _body(block, remat and cache is None)(x, memory)
     if cache is None:
@@ -417,7 +424,7 @@ def _zamba_group(cfg: ModelConfig, params: ZambaLM, g: int, group, x: torch.Tens
             y, new_st = ssm.mamba2_step(cfg, p_m, x, st)
         else:
             y, new_st = ssm.mamba2_forward(cfg, p_m, x, st)
-        x = x + y
+        x = common.layout_of(x + y, x)
         if cache is not None:
             cache["mamba"]["h"][g, i] = new_st.h
             cache["mamba"]["conv"][g, i] = new_st.conv
@@ -434,9 +441,9 @@ def _zamba_group(cfg: ModelConfig, params: ZambaLM, g: int, group, x: torch.Tens
             cfg, params.shared_attn, h, positions=positions,
             window=ZAMBA_WINDOW, use_chunked=s > 4096,
         )
-    x = x + a
+    x = common.layout_of(x + a, x)
     h = rmsnorm(params.shared_ln2[g], x, eps=cfg.norm_eps)
-    return x + ffn.swiglu_forward(params.shared_ffn, h)
+    return common.layout_of(x + ffn.swiglu_forward(params.shared_ffn, h), x)
 
 
 # ======================================================================
@@ -503,7 +510,7 @@ def _xlstm_group(cfg: ModelConfig, params: XLSTMLM, g: int, group, x: torch.Tens
               else ssm.XLSTMState(*(cache["mlstm"][f][g, i] for f in fields)))
         step = ssm.mlstm_step if decode else ssm.mlstm_forward
         y, new = step(cfg, p, h, st)
-        x = x + y
+        x = common.layout_of(x + y, x)
         if cache is not None:
             for f in fields:
                 cache["mlstm"][f][g, i] = getattr(new, f)
@@ -515,7 +522,7 @@ def _xlstm_group(cfg: ModelConfig, params: XLSTMLM, g: int, group, x: torch.Tens
     if cache is not None:
         for f in fields:
             cache["slstm"][f][g] = getattr(new, f)
-    return x + y
+    return common.layout_of(x + y, x)
 
 
 # ======================================================================
@@ -577,7 +584,9 @@ class Model:
                                            use_chunked=s > CHUNKED_ABOVE, remat=remat)
         elif cfg.family == "encdec":
             memory = _run_encoder(cfg, params, batch["frame_embeds"], remat=remat)
-            x = params.embed.embedding[batch["tokens"]].to(memory.dtype)
+            tokens = batch["tokens"]
+            x = common.layout_of(
+                common.embed_lookup(params.embed.embedding, tokens).to(memory.dtype), tokens)
             x, _ = _run_decoder_encdec(cfg, params, x, memory, None, remat=remat)
             aux = torch.zeros((), device=x.device)
         elif cfg.family == "hybrid":

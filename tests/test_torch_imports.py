@@ -10,10 +10,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-# the smoke, and the rank code it shares with the multi-GPU tool
+# the smoke, and the tools that share its rank code or its phases
 PORT_FILES = SRC_FILES + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_dist_ranks.py",
-    ROOT / "tools" / "torch_sharded_train.py",
+    ROOT / "tools" / "torch_sharded_train.py", ROOT / "tools" / "torch_sharded_limits.py",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro(\.|\s))",

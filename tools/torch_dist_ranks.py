@@ -1,8 +1,9 @@
 """What a rank of a distributed run does on the GPU, shared by
-``chip_smoke.py`` (phases ``train_sharded`` and ``pipeline``: four ranks as
-threads on one card) and ``tools/torch_sharded_train.py`` (one process a
-GPU): the training steps with their launch and collective counts, and the
-pipeline over qwen2-7b's blocks.
+``chip_smoke.py`` (phases ``train_sharded``, ``train_sharded_families`` and
+``pipeline``: four ranks as threads on one card) and
+``tools/torch_sharded_train.py`` (one process a GPU): the training steps
+of any family with their launch and collective counts, the launches a
+step of a family calls for, and the pipeline over qwen2-7b's blocks.
 
 Nothing here starts a process group or a rank: each function runs inside a
 rank whose group the caller made.  Imports neither ``jax`` nor ``repro``.
@@ -17,14 +18,24 @@ import torch
 
 DEVICE = "cuda"
 
-# the flash-attention module's launch counters a rank reads, by their smoke
-# names (on one card each rank, a thread, keeps its own: RankCounts)
-RANK_KEYS = {"flash_attention_kernel": ("LAUNCHES", "flash_attention_kernel"),
-             "flash_attention_kernel.tensor_cores": ("VARIANT_LAUNCHES", "tensor_cores"),
-             "flash_attention_kernel.cuda_cores": ("VARIANT_LAUNCHES", "cuda_cores"),
-             "flash_attention_bwd_kernel": ("BWD_LAUNCHES", "flash_attention_bwd_kernel"),
-             "flash_attention_bwd_kernel.tensor_cores": ("BWD_VARIANT_LAUNCHES", "tensor_cores"),
-             "flash_attention_bwd_kernel.cuda_cores": ("BWD_VARIANT_LAUNCHES", "cuda_cores")}
+# the model kernels' launch counters a rank reads, by their smoke names:
+# (kernel module, counter, key); on one card each rank, a thread, keeps its
+# own (RankCounts)
+RANK_KEYS = {
+    "flash_attention_kernel": ("flash_attention", "LAUNCHES", "flash_attention_kernel"),
+    "flash_attention_kernel.tensor_cores": ("flash_attention", "VARIANT_LAUNCHES",
+                                            "tensor_cores"),
+    "flash_attention_kernel.cuda_cores": ("flash_attention", "VARIANT_LAUNCHES", "cuda_cores"),
+    "flash_attention_bwd_kernel": ("flash_attention", "BWD_LAUNCHES",
+                                   "flash_attention_bwd_kernel"),
+    "flash_attention_bwd_kernel.tensor_cores": ("flash_attention", "BWD_VARIANT_LAUNCHES",
+                                                "tensor_cores"),
+    "flash_attention_bwd_kernel.cuda_cores": ("flash_attention", "BWD_VARIANT_LAUNCHES",
+                                              "cuda_cores"),
+    "mamba_chunk_scan_kernel": ("mamba_scan", "LAUNCHES", "mamba_chunk_scan_kernel"),
+    "mamba_chunk_scan_bwd_kernel": ("mamba_scan", "BWD_LAUNCHES",
+                                    "mamba_chunk_scan_bwd_kernel"),
+}
 
 
 class RankCounts(dict):
@@ -55,26 +66,60 @@ class RankCounts(dict):
         self._mine()[key] = value
 
 
+def _kernel_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
 def install_rank_counts() -> None:
     """Give every counter of RANK_KEYS a row per thread (ranks as threads)."""
-    from repro_torch.kernels import flash_attention as fa
-
-    for name in {counter for counter, _ in RANK_KEYS.values()}:
-        setattr(fa, name, RankCounts(dict.keys(getattr(fa, name))))
+    for mod_name, counter in {(m, c) for m, c, _ in RANK_KEYS.values()}:
+        mod = _kernel_module(mod_name)
+        setattr(mod, counter, RankCounts(dict.keys(getattr(mod, counter))))
 
 
 def rank_launches() -> dict:
-    """This rank's B4 and B4-bwd launches by the smoke's names."""
-    from repro_torch.kernels import flash_attention as fa
-
-    return {name: getattr(fa, counter)[key] for name, (counter, key) in RANK_KEYS.items()}
+    """This rank's B4, B4-bwd, B5 and B5-bwd launches by the smoke's names."""
+    return {name: getattr(_kernel_module(m), counter)[key]
+            for name, (m, counter, key) in RANK_KEYS.items()}
 
 
 def reset_rank_launches() -> None:
-    from repro_torch.kernels import flash_attention as fa
+    for m, counter, key in RANK_KEYS.values():
+        getattr(_kernel_module(m), counter)[key] = 0
 
-    for counter, key in RANK_KEYS.values():
-        getattr(fa, counter)[key] = 0
+
+def step_launches(cfg, seq_len: int) -> dict:
+    """The kernel launches one training step of ``cfg`` at ``seq_len``
+    tokens calls for on each rank, remat on (a layer body's kernels run
+    again in the backward): B4 twice and B4-bwd once for each attention
+    layer that takes the chunked core (above 4096 tokens: the decoder-only
+    families' layers and the hybrid's shared-block invocations), B5 twice
+    and B5-bwd once for each Mamba2 layer; by variant for B4 and B4-bwd
+    (``flash_variant``'s table)."""
+    from repro_torch.kernels.flash_attention import flash_variant
+    from repro_torch.models.common import dtype_of
+    from repro_torch.models.transformer import CHUNKED_ABOVE
+
+    attn = mamba = 0
+    if cfg.family in ("dense", "moe", "vlm"):
+        attn = cfg.n_layers
+    elif cfg.family == "hybrid":
+        attn, mamba = cfg.n_layers // cfg.shared_attn_every, cfg.n_layers
+    if seq_len <= CHUNKED_ABOVE:
+        attn = 0
+    if cfg.attn_kind == "mla":
+        hd, hd_v = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim
+    else:
+        hd = hd_v = cfg.resolved_head_dim
+    variant = flash_variant(dtype_of(cfg.dtype), hd, hd_v)
+    out = {"flash_attention_kernel": 2 * attn, "flash_attention_bwd_kernel": attn,
+           "mamba_chunk_scan_kernel": 2 * mamba, "mamba_chunk_scan_bwd_kernel": mamba}
+    for v in ("tensor_cores", "cuda_cores"):
+        out[f"flash_attention_kernel.{v}"] = 2 * attn if v == variant else 0
+        out[f"flash_attention_bwd_kernel.{v}"] = attn if v == variant else 0
+    return out
 
 
 class CollectiveCount:
@@ -148,18 +193,21 @@ class CollectiveCount:
         return {k: {"calls": self.calls[k], "bytes": self.bytes[k]} for k in sorted(self.calls)}
 
 
-def depth_config(arch: str, layers: int):
-    """``arch`` at its published widths, ``layers`` of its layers."""
+def depth_config(arch: str, layers: int | None = None):
+    """``arch`` at its published widths, ``layers`` of its layers (all of
+    them by default)."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config(arch), n_layers=layers)
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
 
 
-def train_batches(cfg, seq_len: int, global_batch: int, steps: int, seed: int):
+def train_batches(cfg, seq_len: int, global_batch: int, steps: int, seed: int, *,
+                  device: str | None = None):
     from repro_torch.data import DataConfig, SyntheticLMDataset
 
     data = SyntheticLMDataset(DataConfig(seq_len, global_batch, cfg.vocab_size, seed=seed),
-                              cfg, device=DEVICE)
+                              cfg, device=device or DEVICE)
     return [data.batch(i) for i in range(steps)]
 
 
@@ -176,22 +224,31 @@ def module_with(cfg, tensors: dict):
 
 
 def train_run(cfg, params, batches, lr: float, *, vocab_chunk: int = 0, mesh=None,
-              step1: str = "") -> dict:
+              step1: str = "", device: str | None = None, opt_state=None,
+              first_step: int = 0, after_step=None) -> dict:
     """Steps of ``make_train_step`` over ``batches`` (placed on ``mesh``
-    when given), each timed and its launches and collectives read.
-    ``step1``: "keep" the parameters after the first step (whole, on the
-    host), "join" the gathers of them only (a rank other than 0), or ""
-    neither."""
+    when given), each timed and its launches and collectives read, on
+    ``device`` (default the GPU).  ``step1``: "keep" the parameters after
+    the first step (whole, on the host), "join" the gathers of them only (a
+    rank other than 0), or "" neither.  ``opt_state``: the optimizer state
+    to start from (a restored checkpoint's, ``first_step`` steps in; the
+    schedule counts from the state's step); ``after_step(i, params,
+    opt_state)`` is called after each step."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.models.transformer import Model
     from repro_torch.runtime import input_shardings
     from repro_torch.train import AdamWConfig, TrainConfig, init_train_state, make_train_step
 
-    model = Model(cfg, device=DEVICE)
+    device = device or DEVICE
+    cuda = device.startswith("cuda")
+    model = Model(cfg, device=device)
     model.vocab_chunk = vocab_chunk
-    tcfg = TrainConfig(optimizer=AdamWConfig(lr=lr, warmup_steps=1, total_steps=len(batches)))
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=lr, warmup_steps=1,
+                                             total_steps=first_step + len(batches)))
     state = init_train_state(params, tcfg)
+    if opt_state is not None:
+        state.opt_state = opt_state
     step = make_train_step(model.train_loss, tcfg)
     steps, kept = [], None
     for i, batch in enumerate(batches):
@@ -199,22 +256,26 @@ def train_run(cfg, params, batches, lr: float, *, vocab_chunk: int = 0, mesh=Non
             pl = input_shardings(batch, mesh)
             batch = {k: distribute_tensor(v, mesh, pl[k], src_data_rank=None)
                      for k, v in batch.items()}
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
         reset_rank_launches()
         with CollectiveCount() as coll:
             t0 = time.perf_counter()
             _, state.opt_state, _, m = step(params, state.opt_state, None, batch, None)
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            torch.cuda.synchronize()
+            if cuda:
+                torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         steps.append({"loss": loss, "grad_norm": gnorm, "seconds": seconds,
                       "launches": rank_launches(), "collectives": coll.summary()})
+        if after_step is not None:
+            after_step(i, params, state.opt_state)
         if step1 and i == 0:
             kept = {}
             for k, p in params.named_parameters():
                 whole = p.full_tensor() if mesh is not None else p.detach()
                 if step1 == "keep":  # on the host: the card's memory is the ranks'
-                    kept[k] = whole.cpu()
+                    kept[k] = whole.to("cpu", copy=True)
             kept = kept or None
     local = sum(t.to_local().numel() * t.to_local().element_size() if mesh is not None
                 else t.numel() * t.element_size()
