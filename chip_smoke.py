@@ -146,6 +146,20 @@ one JSON object per line:
                       blocks in sequence on the card (within 2^-5 of the
                       largest value), B4 and B4-bwd launches a rank, forward
                       time a slot beside the predicted bubble.
+   ``serve_sharded`` — ``launch.specs.build_cell``'s prefill and decode
+                      steps on (data 2, model 2), four thread ranks, caches
+                      in ``state_shardings``' layouts: qwen2-7b (4 of 28
+                      layers) and zamba2-1.2b (38) in bf16, 2 prompts of
+                      4608 tokens into 8192 positions and 8 greedy steps
+                      (zamba2 4),
+                      zamba2 at long_500k's shape (a seeded cache of 524 288
+                      positions, 4 steps); every rank's B4 and B5 launches
+                      and heads a prefill, none in decode; held to the
+                      unsharded run on the card (bf16: against the same run
+                      in f32, SERVE_SHARDED's f32_slack), and f32 replays of
+                      all three at reduced widths within 1e-5, greedy
+                      tokens equal; tokens/s, peak memory, collective bytes
+                      a rank and decode step.
 8. ``min_cut``      — the per-phase kernel (B3) against its plain version on
                       single phases of 6-1024 vertices ((s, t) equal, cuts to
                       ``rtol=1e-5``), then ``kernels.ops.mcop_min_cut`` on the
@@ -175,7 +189,8 @@ launches of its passes, counted once), each model of phase
 ``serve_families`` (B4 once per attention layer of a prefill, no other
 kernel), each step of phase ``train`` (B4, B4-bwd, B5, B5-bwd) and phase 8 (the per-phase tier: B3 once per MinCutPhase).  A
 kernel of a path that was not launched there fails the run; in phases
-``train_sharded``, ``train_sharded_families`` and ``pipeline`` each rank keeps
+``train_sharded``, ``train_sharded_families``, ``pipeline`` and
+``serve_sharded`` each rank keeps
 its own counts (B4, B4-bwd, B5 and B5-bwd),
 set to 0 before each step or run and read after it; the server of phase 9 runs B1 in its own
 process, so the phase fails unless its tick reports show solves.  Then a
@@ -241,9 +256,10 @@ DEVICE = "cuda"
 # (at n=64 and n=256 the batch exceeds the blocks the card keeps resident, so
 # blocks walk over several graphs and reuse their scratch).  The plain
 # version's time is set by its step count, not its batch, so the shapes that
-# run the scratch-matrix variant (n above ~235) get tens of plain graphs too.
+# run the scratch-matrix variant (n above ~235) get tens of plain graphs too;
+# at n=768 one plain graph takes ~26 s on an H100's host, so one is held.
 SW_CHECKS = ((16, 2048, 2048, 8), (64, 4096, 256, 4), (256, 1200, 32, 2),
-             (320, 132, 16, 2), (768, 2, 2, 0))
+             (320, 132, 16, 2), (768, 2, 1, 0))
 # fused kernel checks: (n, kernel batch, plain batch); all kinds up to 256
 FUSED_CHECKS = ((16, 2048, 2048), (64, 1024, 256), (256, 264, 16), (512, 2, 2))
 CHECK_MIN_N = int(os.environ.get("SMOKE_CHECK_MIN_N", "0"))
@@ -281,9 +297,15 @@ FLASH_CHECKS = (
     (4, 28, 4, 8192, 8192, 128, True, None, "bfloat16", "model"),
     (1, 16, 16, 8192, 8192, 64, True, 4096, "bfloat16", "model"),
     (1, 2, 2, 4160, 4160, 16, True, 4096, "float32", "model"),
+    (1, 14, 2, 4608, 4608, 128, True, None, "bfloat16", "model"),
+    (1, 16, 16, 4608, 4608, 64, True, 4096, "bfloat16", "model"),
+    (1, 2, 1, 4608, 4608, 16, True, None, "float32", "model"),
+    (1, 2, 2, 4608, 4608, 16, True, 4096, "float32", "model"),
 )
-# the last two: zamba2's shared block as train_sharded_families hands it to
-# B4 on a rank (16 of 32 heads; the f32 replay's 2 of 4).
+# then zamba2's shared block as train_sharded_families hands it to B4 on a
+# rank (16 of 32 heads; the f32 replay's 2 of 4); and a rank's prefill in
+# serve_sharded (a prompt of 4608 tokens): qwen2-7b's 14 / 2 heads, zamba2's
+# 16 of 32, and the f32 runs' qwen2-7b 2 / 1 and zamba2 2 of 4.
 # (atol, rtol) by dtype.  bf16: both sides round an f32 result to bf16, so
 # they may differ by one bf16 step of the output, at most 2^-7 |o|, plus
 # what f32 sums in another order leave before the rounding (under 1e-6 in
@@ -333,9 +355,12 @@ MAMBA_CHECKS = (
     (2, 4100, 4112, 8, 16, 16, 16, "slices"),
     (1, 8192, 8192, 32, 64, 64, 256, "model"),
     (1, 4160, 4160, 4, 16, 16, 16, "model"),
+    (1, 4608, 4608, 32, 64, 64, 256, "model"),
+    (1, 4608, 4608, 4, 16, 16, 16, "model"),
 )
-# the last two: a rank's heads in train_sharded_families (zamba2's 32 of 64,
-# the f32 replay's 4 of 8).
+# then a rank's heads in train_sharded_families (zamba2's 32 of 64, the f32
+# replay's 4 of 8) and in serve_sharded's prefill of 4608 tokens (the same
+# heads, from a state h0).
 MAMBA_RTOL = 1e-4   # f32 sums in another order; atol = rtol x the output's max
 SERVE = {"arch": "zamba2-1.2b", "requests": 8, "max_batch": 4,
          "prompt": (4608, 8192), "new_tokens": 16, "seed": 0}
@@ -3249,6 +3274,84 @@ TRAIN_SHARDED_MLA = {
                "widths": {"mla": dict(kv_lora_rank=32, q_lora_rank=48, qk_nope_head_dim=128,
                                       qk_rope_head_dim=64, v_head_dim=128)}}}
 
+# Serving sharded on (data 2, model 2), four ranks as threads on the card:
+# qwen2-7b (4 of its 28 layers) and zamba2-1.2b (all 38) at published
+# widths in bf16, 2 prompts of 4608 tokens (above 4096: B4's chunked route)
+# into a cache of 8192 positions, then 8 greedy decode steps (zamba2's 4:
+# a step is ~10 s of four threads' host time at 38 layers); zamba2 at
+# long_500k's shape (batch 1, a cache of 524 288 positions, its 4096-slot
+# ring and the Mamba2 states seeded, at length 524 280), 4 steps; and f32
+# replays of those three runs at reduced widths.  The unsharded runs on
+# the card take the sharded runs' tokens.  bf16: the partial sums over
+# "model" round in bf16 in another order, so each run is also replayed
+# unsharded in f32 on the same tokens, and the sharded logits must lie
+# within f32_slack times as far from those as the unsharded bf16 logits do
+# (zamba2's own bf16 logits lie 0.12-0.32 of the largest from its f32
+# logits at 38 layers, so no fixed share of the largest says anything
+# there); qwen2-7b's also within logit_tol of the unsharded run's largest.
+# tools/torch_sharded_limits.py --phase serve on an H100 read zamba2's
+# ratios (the prompt run then took 8 steps): seeds 0-2 0.96-0.98 (prompt
+# run) and 0.38, 1.25, 2.07
+# (long_500k: seed 2 would fail; the phase runs seed 0, the same reading
+# every call); planted faults 3.4-4.4 (the Mamba2 step's state dropped, h's
+# N block paired with the wrong B and C), but a ring written one slot off
+# reads 0.98 and 0.50: bf16 cannot see it (in the prompt run nothing can:
+# with the ring full, every slot is in the window, and attention does not
+# depend on the slots' order).
+# The f32 replays, qwen2-7b's and both zamba2 runs' (the prompt run, and
+# long_500k's shape from a seeded cache: B5 on local heads and the
+# ring's writes across ranks, then the Mamba2 step on h split over N) at
+# reduced widths: within rtol, their greedy tokens equal; these hold the
+# sharded route exactly where bf16 cannot (sound seeds 5.7e-7 to 7.4e-6;
+# every planted fault fails them, the ring offset at 3.0e-4 in the
+# long_500k run, the others at 1.2-1.5 of the largest).  (Four layers at batch 2:
+# ``state_shardings`` splits over "data" the first axis of the batch's
+# size, and two layers would be that axis.)
+SERVE_SHARDED = {
+    "mesh": (2, 2), "seed": 0, "timeout": 600, "f32_slack": 2.0,
+    "runs": {
+        "qwen2-7b": {"arch": "qwen2-7b", "layers": 4, "prompt_len": 4608, "batch": 2,
+                     "max_len": 8192, "steps": 8, "logit_tol": 5e-2},
+        "zamba2-1.2b": {"arch": "zamba2-1.2b", "prompt_len": 4608, "batch": 2,
+                        "max_len": 8192, "steps": 4},
+        "zamba2-1.2b_long500k": {"arch": "zamba2-1.2b", "batch": 1, "max_len": 524_288,
+                                 "length": 524_280, "steps": 4},
+        "qwen2-7b_f32": {"arch": "qwen2-7b", "prompt_len": 4608, "batch": 2, "max_len": 8192,
+                         "steps": 8, "rtol": 1e-5,
+                         "widths": dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+                                        d_ff=128, vocab_size=256, n_layers=4)},
+        "zamba2-1.2b_f32": {"arch": "zamba2-1.2b", "prompt_len": 4608, "batch": 2,
+                            "max_len": 8192, "steps": 8, "rtol": 1e-5,
+                            "widths": dict(n_layers=4)},
+        "zamba2-1.2b_long500k_f32": {"arch": "zamba2-1.2b", "batch": 1, "max_len": 524_288,
+                                     "length": 524_280, "steps": 4, "rtol": 1e-5,
+                                     "widths": dict(n_layers=4)}}}
+# the thread worlds' switch interval (s): a sharded step is hundreds of
+# collectives, each a meeting of every rank's thread
+WORLD_SWITCH_INTERVAL = 1e-4
+
+
+def _warm_python_ops() -> int:
+    """Look up every registered operator's ``torch.ops`` overload once, on
+    one thread, and return how many.  When C++ dispatch first hands an
+    operator to Python (the rank counters' ``__torch_dispatch__``), PyTorch
+    caches the operator's Python object; building that object runs Python
+    code, and a rank thread switched out there while another thread fills
+    the same cache trips PyTorch's internal assertion "expected !=
+    self_interpreter" (``c10/core/PyHandleCache.h``).  Once the objects
+    exist, filling the cache runs no Python code, so no thread is switched
+    out inside it."""
+    n = 0
+    for name in torch._C._dispatch_get_all_op_names():
+        ns, _, rest = name.partition("::")
+        op, _, overload = rest.partition(".")
+        try:
+            getattr(getattr(getattr(torch.ops, ns), op), overload or "default")
+        except (AttributeError, RuntimeError):
+            continue   # not reachable from Python: never handed to it either
+        n += 1
+    return n
+
 
 def _thread_world(kind: str, spec: dict, world: int, out_path: str) -> None:
     """A child process: ``world`` ranks as threads over the threaded process
@@ -3262,10 +3365,14 @@ def _thread_world(kind: str, spec: dict, world: int, out_path: str) -> None:
         ProcessLocalGroup, _install_threaded_pg)
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks meet at every collective; at the interpreter's default switch
+    # interval (5 ms) each meeting waits for the threads holding its lock
+    sys.setswitchinterval(WORLD_SWITCH_INTERVAL)
     ranks.install_rank_counts()
     shared = WORLD_SETUP[kind](spec)
     torch._C._distributed_c10d._set_thread_isolation_mode(True)
     _install_threaded_pg()
+    _warm_python_ops()
     store = dist.HashStore()
     results, failures = [None] * world, []
 
@@ -3709,9 +3816,247 @@ def phase_pipeline() -> dict:
             "seconds": seconds}
 
 
-WORLD_SETUP = {"train_sharded": setup_train_sharded, "pipeline": ranks.setup_pipeline}
-WORLD_RANK = {"train_sharded": rank_train_sharded, "pipeline": ranks.rank_pipeline}
-WORLD_AFTER = {"train_sharded": after_train_sharded, "pipeline": after_pipeline}
+def serve_config(run: dict):
+    """A serving run's config: published widths at ``layers`` (all by
+    default), or the reduced config in float32 at ``widths``."""
+    from repro_torch.configs import get_config, reduce_config
+
+    if "widths" in run:
+        return reduce_config(get_config(run["arch"]), dtype="float32", **run["widths"])
+    return ranks.depth_config(run["arch"], run.get("layers"))
+
+
+def setup_serve_sharded(spec: dict) -> dict:
+    """Each run's model (seeded on the card, kept on the host while the
+    ranks serve) and its prompts, or its seeded cache and first tokens."""
+    from repro_torch.models.transformer import Model
+
+    ranks.LaunchHeads.install()
+    out = {}
+    for name, run in spec["runs"].items():
+        cfg = serve_config(run)
+        params = Model(cfg, device=DEVICE).init(spec["seed"])
+        s = {"cfg": cfg, "params": {k: p.detach().cpu() for k, p in params.named_parameters()}}
+        del params
+        if "prompt_len" in run:
+            s["batch"] = {k: v.cpu() for k, v in ranks.serve_batch(
+                cfg, run["prompt_len"], run["batch"], spec["seed"]).items()}
+        else:
+            cache = ranks.seeded_cache(cfg, run["batch"], run["max_len"], run["length"],
+                                       spec["seed"])
+            s["cache"] = _tree_to(cache, "cpu")
+            gen = torch.Generator(device=DEVICE).manual_seed(spec["seed"] + 1)
+            s["start"] = torch.randint(1, cfg.vocab_size, (run["batch"], 1), generator=gen,
+                                       device=DEVICE).cpu()
+        out[name] = s
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _place_tree(tree, shardings, mesh):
+    from repro_torch.runtime.sharding import place
+
+    if isinstance(tree, dict):
+        return {k: _place_tree(v, shardings[k], mesh) for k, v in tree.items()}
+    return place(tree.to(DEVICE), mesh, shardings) if isinstance(tree, torch.Tensor) else tree
+
+
+def rank_serve_sharded(rank: int, world: int, spec: dict, shared: dict) -> dict:
+    """One rank: its shards of each run's model, then the run's cells."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.runtime import shard_params
+
+    mesh = make_mesh(spec["mesh"], ("data", "model"), device=DEVICE)
+    out = {}
+    for name, run in spec["runs"].items():
+        s = shared[name]
+        cfg = s["cfg"]
+        params = ranks.module_with(cfg, shard_params(s["params"], mesh))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kw = dict(max_len=run["max_len"], steps=run["steps"], mesh=mesh, keep=rank == 0)
+        if "batch" in s:
+            res = ranks.serve_run(cfg, params, batch={k: v.to(DEVICE) for k, v in
+                                                      s["batch"].items()}, **kw)
+        else:
+            cell = build_cell(cfg, ShapeConfig("long", "decode", run["max_len"], run["batch"]),
+                              mesh)
+            cache = _place_tree(s["cache"], cell.in_shardings[2], mesh)
+            res = ranks.serve_run(cfg, params, cache=cache, start=s["start"].to(DEVICE),
+                                  bsz=run["batch"], **kw)
+            del cache
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["seconds"] = time.perf_counter() - t0
+        out[name] = res
+        del params
+    return out
+
+
+def after_serve_sharded(spec: dict, shared: dict, results: list) -> dict:
+    """The unsharded runs on the card (the ranks are done): bf16 runs take
+    the sharded run's tokens, the f32 replay its own greedy ones; each held
+    to the sharded run."""
+    import gc
+
+    out = {}
+    for name, run in spec["runs"].items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        s, got = shared[name], results[0][name]
+        cfg = s["cfg"]
+        t0 = time.perf_counter()
+        params = ranks.module_with(cfg, {k: t.to(DEVICE) for k, t in s["params"].items()})
+        forced = None if "rtol" in run else [t.to(DEVICE) for t in got["tokens"]]
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(max_len=run["max_len"], steps=run["steps"], forced=forced)
+        if "batch" in s:
+            ref = ranks.serve_run(cfg, params, batch={k: v.to(DEVICE) for k, v in
+                                                      s["batch"].items()}, **kw)
+        else:
+            ref = ranks.serve_run(cfg, params, cache=_tree_to(s["cache"], DEVICE),
+                                  start=s["start"].to(DEVICE), bsz=run["batch"], **kw)
+        scale = max(float(t.abs().max()) for t in ref["logits"])
+        err = max(float((a - b).abs().max()) for a, b in zip(got["logits"], ref["logits"]))
+        same = [bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+                for a, b in zip(got["logits"], ref["logits"])]
+        f32 = {}
+        if "rtol" not in run:   # the unsharded run in f32, on the same tokens
+            del params
+            ref["logits"] = [t.cpu() for t in ref["logits"]]
+            f32 = _f32_distances(s, run, got, ref, kw)
+        out[name] = {"logit_err": err, "logit_scale": scale, "logit_rel": err / scale, **f32,
+                     "greedy_equal": same,
+                     "tokens_equal": all(torch.equal(a, b) for a, b in
+                                         zip(got["tokens"], ref["tokens"])),
+                     "ref_prefill_seconds": ref.get("prefill_seconds"),
+                     "ref_decode_seconds": ref["decode_seconds"],
+                     "ref_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "ref_cache_bytes": ref["cache_bytes"],
+                     "ref_seconds": time.perf_counter() - t0}
+        for res in results:
+            res[name]["logits"] = None
+        del ref
+    return out
+
+
+def _f32_distances(s: dict, run: dict, got: dict, ref: dict, kw: dict) -> dict:
+    """The unsharded run again in float32 (the same bf16 weights and cache
+    values, the same tokens), and how far the sharded and the unsharded
+    bf16 logits each lie from it, as shares of its largest: a difference
+    between the two bf16 runs told from bf16 rounding."""
+    cfg = dataclasses.replace(s["cfg"], dtype="float32")
+    params = ranks.module_with(cfg, {k: t.to(DEVICE, torch.float32) for k, t in
+                                     s["params"].items()})
+    if "batch" in s:
+        r32 = ranks.serve_run(cfg, params, batch={k: v.to(DEVICE) for k, v in
+                                                  s["batch"].items()}, **kw)
+    else:
+        cache = _tree_to(s["cache"], DEVICE)
+        cache = {k: _tree_f32(v) for k, v in cache.items()}
+        r32 = ranks.serve_run(cfg, params, cache=cache, start=s["start"].to(DEVICE),
+                              bsz=run["batch"], **kw)
+    scale = max(float(t.abs().max()) for t in r32["logits"])
+
+    def dist(res):
+        return max(float((a - b).abs().max()) for a, b in zip(res["logits"], r32["logits"]))
+    return {"f32_sharded": dist(got) / scale, "f32_unsharded": dist(ref) / scale}
+
+
+def _tree_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_f32(v) for k, v in tree.items()}
+    return tree.float() if isinstance(tree, torch.Tensor) else tree
+
+
+def phase_serve_sharded() -> dict:
+    """The serving cells sharded on the card (SERVE_SHARDED): four ranks of
+    a (data 2, model 2) mesh as threads of one child process, each running
+    ``build_cell``'s prefill step (B4 on its 14 query / 2 kv heads of
+    qwen2-7b, on 16 of zamba2's 32 shared-block heads; B5 on 32 of its 64
+    Mamba2 heads) and decode steps (no kernel: the cache read where it
+    lies), each run held to the unsharded run on the card."""
+    spec = SERVE_SHARDED
+    world = spec["mesh"][0] * spec["mesh"][1]
+    t0 = time.perf_counter()
+    out = run_world("serve_sharded", spec, world)
+    seconds = time.perf_counter() - t0
+    results, after = out["results"], out["after"]
+    none = {k: 0 for k in ranks.RANK_KEYS}
+    rows, total = [], dict.fromkeys(("flash_attention_kernel", "mamba_chunk_scan_kernel"), 0)
+    bad = []
+    for name, run in spec["runs"].items():
+        cfg, err = serve_config(run), after[name]
+        want = ranks.serve_launches(cfg, run["prompt_len"]) if "prompt_len" in run else None
+        for rank, res in enumerate(results):
+            r = res[name]
+            if want is not None and r["prefill_launches"] != want:
+                raise AssertionError(f"serve_sharded {name}: rank {rank}'s prefill launched "
+                                     f"{r['prefill_launches']}, expected {want}")
+            if any(d != none for d in r["decode_launches"]):
+                raise AssertionError(f"serve_sharded {name}: rank {rank}'s decode launched "
+                                     f"{r['decode_launches']}")
+            for k in total:
+                total[k] += r.get("prefill_launches", none)[k]
+        if "rtol" in run:
+            if not (err["tokens_equal"] and err["logit_rel"] <= run["rtol"]):
+                bad.append(f"{name}: against the unsharded run {err}")
+        elif not (err["logit_rel"] <= run.get("logit_tol", np.inf)
+                  and err["f32_sharded"] <= spec["f32_slack"] * max(err["f32_unsharded"], 1e-5)):
+            bad.append(f"{name}: against the unsharded run {err}")
+        r0 = results[0][name]
+        bsz = run["batch"]
+        dec = [max(res[name]["decode_seconds"][i] for res in results)
+               for i in range(run["steps"])]
+        row = {"run": name, "seconds": max(res[name]["seconds"] for res in results),
+               "ref_seconds": err["ref_seconds"],
+               "arch": run["arch"], "layers": cfg.n_layers, "dtype": cfg.dtype,
+               "batch": bsz, "max_len": run["max_len"],
+               "prompt_len": run.get("prompt_len"), "length": r0["length"],
+               "decode_step_seconds": dec, "decode_tokens_per_s": bsz * (len(dec) - 1)
+               / sum(dec[1:]),
+               "ref_decode_step_seconds": err["ref_decode_seconds"],
+               "collectives_per_decode_step": r0["collectives"][-1],
+               "collective_bytes_per_decode_step": ranks.collective_bytes(
+                   r0["collectives"][-1]),
+               "cache_bytes_per_rank": [res[name]["cache_bytes"] for res in results],
+               "ref_cache_bytes": err["ref_cache_bytes"],
+               "peak_gb_process": max(res[name]["peak_gb"] for res in results),
+               "ref_peak_gb": err["ref_peak_gb"],
+               "errors": {k: err[k] for k in ("logit_rel", "logit_err", "logit_scale",
+                                              "greedy_equal", "tokens_equal", "f32_sharded",
+                                              "f32_unsharded") if k in err},
+               "bound": {"rtol": run["rtol"]} if "rtol" in run
+               else {"logit_tol": run.get("logit_tol"), "f32_slack": spec["f32_slack"]}}
+        if want is not None:
+            pre = max(res[name]["prefill_seconds"] for res in results)
+            row.update({"prefill_seconds": pre,
+                        "prefill_tokens_per_s": bsz * run["prompt_len"] / pre,
+                        "ref_prefill_seconds": err["ref_prefill_seconds"],
+                        "prefill_launches_per_rank": want,
+                        "prefill_heads_per_rank": [res[name].get("prefill_heads")
+                                                   for res in results]})
+        rows.append(row)
+    if bad:
+        raise AssertionError("serve_sharded: " + "; ".join(bad) + "\n" + json.dumps(rows))
+    return {"phase": "serve_sharded", "backend": "threaded (4 ranks as threads on cuda:0)",
+            "mesh": {"data": spec["mesh"][0], "model": spec["mesh"][1]}, "runs": rows,
+            "main_path_launches": total, "seconds": seconds}
+
+
+WORLD_SETUP = {"train_sharded": setup_train_sharded, "pipeline": ranks.setup_pipeline,
+               "serve_sharded": setup_serve_sharded}
+WORLD_RANK = {"train_sharded": rank_train_sharded, "pipeline": ranks.rank_pipeline,
+              "serve_sharded": rank_serve_sharded}
+WORLD_AFTER = {"train_sharded": after_train_sharded, "pipeline": after_pipeline,
+               "serve_sharded": after_serve_sharded}
 
 
 def child_processes() -> list[str]:
@@ -3826,6 +4171,11 @@ def main() -> int:
             raise AssertionError(f"train_sharded_families never launched {name}")
     piped = phase_pipeline()  # each rank resets and reads its counters around each run
     emit(piped)
+    served_sharded = phase_serve_sharded()  # each rank: around its prefill and each step
+    emit(served_sharded)
+    for name, count in served_sharded["main_path_launches"].items():
+        if count <= 0:
+            raise AssertionError(f"serve_sharded never launched {name}")
 
     t0 = time.perf_counter()
     min_cut = phase_min_cut(rng)  # resets and reads the counters around its path
@@ -3930,6 +4280,8 @@ def main() -> int:
         if entry["name"] in families_sharded["main_path_launches"]:
             entry["launches_train_sharded_families"] = (
                 families_sharded["main_path_launches"][entry["name"]])
+        if entry["name"] in served_sharded["main_path_launches"]:
+            entry["launches_serve_sharded"] = served_sharded["main_path_launches"][entry["name"]]
     for entry in kernels["kernels"]:
         if entry["launches"] <= 0:
             raise AssertionError(f"{entry['name']} was launched on no path")

@@ -16,7 +16,12 @@ autograd of the plain version.
 
 A DTensor q/k/v (a model whose parameters ``runtime.sharding`` placed on a
 mesh) runs ``flash_attention`` on each rank's own shard: batch over the
-data axes, heads over ``"model"`` (``_flash_attention_sharded``).
+data axes, heads over ``"model"`` (``_flash_attention_sharded``); so does
+a DTensor scan (``_mamba_chunk_scan_sharded``), from a state in any
+layout.  Their callers: the sharded training step, and the serving cells'
+prefill (``launch.specs.build_cell``), whose k/v and final state are then
+written into the cache's own layout by ``models.common.cache_write`` /
+``cache_set``.
 """
 
 from __future__ import annotations
@@ -68,7 +73,10 @@ def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, *, causal: bool
     function.  q's layout decides: each mesh dimension keeps ``Shard(0)``
     (batch) or ``Shard(2)`` (heads) or is ``Replicate()``; a ``Partial``
     is reduced first.  A sharded sequence or head width is refused: the
-    scores of one row would span ranks.
+    scores of one row would span ranks.  Callers: training, and a
+    prefill above 4096 tokens into an empty cache (the empty-cache route
+    of ``models.attention``), whose fresh k/v it attends before they are
+    written into the sequence-sharded cache.
 
     When the head-sharding axes divide both the query and the kv heads,
     k and v are brought to q's layout: query heads shard in contiguous
@@ -221,8 +229,11 @@ def _mamba_chunk_scan_sharded(x: DTensor, dt: DTensor, ld: DTensor, bm: DTensor,
     recurrence would span ranks).  dt and the log decay take x's layout, B
     and C are whole over the head axes (their gradient the sum of the
     ranks' heads': ``Partial``), and the states ``h0`` and ``h`` are
-    ``(B, H, P, N)`` sharded on H.  Each rank runs B5 (and B5-bwd) on its
-    batch and heads."""
+    ``(B, H, P, N)`` sharded on H: ``h0`` arrives in any layout (a serving
+    prefill passes the cache's, N over ``"model"``) and is brought to it.
+    Each rank runs B5 (and B5-bwd) on its batch and heads.  Callers: the
+    sharded training step (from zeros) and the serving prefill
+    (``models.ssm._mamba2_forward_sharded``, from the cache's state)."""
     mesh = x.device_mesh
     layout = []
     for i, p in enumerate(x.placements):

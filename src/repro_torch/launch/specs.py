@@ -10,11 +10,12 @@ placements (``runtime.sharding``) where JAX has ``NamedSharding``\\ s,
 leaf for leaf the reference's.
 
 ``step_fn`` runs on real DTensors (the arguments placed by
-``in_shardings``) for the training cell of every family: gradients
-accumulated over ``n_micro`` microbatches, then AdamW, as the JAX cell.
-The serving steps, and only they, raise ``NotImplementedError``: the
-prefill and decode cells come next (ROADMAP, Queue A item 14d), then the
-dry run that lowers both kinds.
+``in_shardings``) for every cell of every family.  The training step
+accumulates gradients over ``n_micro`` microbatches, then runs AdamW, as
+the JAX cell.  The serving steps are ``Model.prefill`` and
+``Model.decode_step``: they return ``(logits, cache)`` placed as
+``out_shardings`` says, the cache written in place (the counterpart of
+``donate_argnums=(2,)``; ``length`` stays a host integer).
 """
 
 from __future__ import annotations
@@ -52,14 +53,6 @@ def _meta(shape, dtype) -> torch.Tensor:
 def _opt_shapes(params) -> dict:
     f32 = {k: _meta(p.shape, torch.float32) for k, p in params.named_parameters()}
     return {"mu": f32, "nu": dict(f32), "step": _meta((), torch.int32)}
-
-
-def _not_yet(cfg: ModelConfig, kind: str):
-    def step(*args):
-        raise NotImplementedError(
-            f"the sharded {kind} step of the {cfg.family} family ({cfg.name}) is not "
-            "ported yet (ROADMAP, Queue A item 14d)")
-    return step
 
 
 def build_cell(
@@ -118,22 +111,32 @@ def build_cell(
     if shape.kind == "prefill":
         batch_shapes = make_batch_shapes(cfg, shape.seq_len, bsz)
         batch_shapes.pop("labels")
+
+        def prefill_step(params, batch, cache):
+            logits, cache = model.prefill(params, batch, cache)
+            return logits, cache
+
         return CellSpec(
             model=model, kind="prefill",
             arg_shapes=(params, batch_shapes, cache_shapes),
             in_shardings=(p_shard, shard_lib.input_shardings(batch_shapes, mesh), c_shard),
             out_shardings=(logits, c_shard),
-            step_fn=_not_yet(cfg, "prefill"), donate_argnums=(2,))
+            step_fn=prefill_step, donate_argnums=(2,))
 
     # decode: one new token against a cache of seq_len
     tok_shapes = _meta((bsz, 1), torch.int64)
     extras = {}
     if cfg.rope_variant == "mrope":
         extras["positions"] = _meta((bsz, 1, 3), torch.int64)
+
+    def decode_step(params, tokens, cache, extras):
+        logits, cache = model.decode_step(params, tokens, cache, extras)
+        return logits, cache
+
     return CellSpec(
         model=model, kind="decode",
         arg_shapes=(params, tok_shapes, cache_shapes, extras),
         in_shardings=(p_shard, shard_lib.input_shardings(tok_shapes, mesh), c_shard,
                       shard_lib.input_shardings(extras, mesh)),
         out_shardings=(logits, c_shard),
-        step_fn=_not_yet(cfg, "decode"), donate_argnums=(2,))
+        step_fn=decode_step, donate_argnums=(2,))

@@ -1,14 +1,17 @@
 """Attention: the GQA layer (qk_norm, bias, RoPE or M-RoPE, cross-attention,
 sliding-window ring caches), DeepSeek-V2 MLA (multi-head latent attention),
-their decode caches, and two attention cores.
+their decode caches, and three attention cores.
 
 * :func:`naive_attention` materialises the ``(Sq, Sk)`` scores: short
-  prompts, ring and cross-attention decode steps (plain tensor code, as in
-  the JAX package).
+  prompts without a cache (plain tensor code, as in the JAX package).
 * :func:`chunked_attention` is the long-prefill core: the flash-attention
   kernel through ``kernels.ops.flash_attention`` (on a CPU tensor, its
   plain version).  It takes value heads narrower than the query/key heads,
   as MLA's are.
+* :func:`decode_attention` reads a cache as it is stored: every cached
+  call but the empty-cache prefill route (a decode step or a prompt into a
+  KV cache, the sliding-window ring, MLA's latent cache in the absorbed
+  form, the cross-attention over a cached memory).
 
 **The empty-cache prefill route.**  A prefill into a cache that holds
 nothing yet (``cache.length == 0``, ``s > 1``) with ``use_chunked`` set
@@ -23,15 +26,23 @@ positions ``0 .. s-1`` is the same on both sides.  (MLA's absorbed form
 multiplies by ``W_UK`` and ``W_UV`` on the other side of the same products.)
 The serving engine admits each wave into a fresh cache, so every engine
 prefill starts at length 0; at deepseek-v2's widths the score matrix of 4
-prompts of 6 144 tokens would need 78 GB of float32.  Every other cached
-call keeps the reference's route, except the next one.
+prompts of 6 144 tokens would need 78 GB of float32.
 
-**The one-token decode over a (non-ring) cache** takes the grouped-query
-einsum over the cache as it is stored (:func:`_flash_decode_attention`, the
-JAX package's sequence-sharded decode layout, which it takes when
-``set_decode_flash_partitioning(True)``), never repeating K/V to the query
-heads as ``naive_attention`` would.  It is the same function as the
-reference's naive decode, with float32 products throughout.
+**Reading a cache** (:func:`decode_attention`) takes the grouped-query
+einsum over the cache as it is stored (the JAX package's sequence-sharded
+decode layout, which it takes when ``set_decode_flash_partitioning(True)``),
+never repeating K/V to the query heads as ``naive_attention`` would, with
+float32 products throughout: the same function as the reference's naive
+attention over the cache.  MLA's absorbed form is the same call with one
+kv head, the latents: keys ``c_kv | k_rope``, values ``c_kv``.
+
+**On a mesh** (DTensor parameters and a cache placed by
+``runtime.sharding.state_shardings``) a cache is written only by the
+ranks that own the positions written (``common.cache_write``,
+``common.cache_write_ring``), and read where it lies: each rank scores its
+own slots, and only the softmax statistics and the ``(B, Sq, H, Dv)``
+output cross the "model" axis (the reference's docstring of its
+sequence-sharded decode).  No call gathers a cache.
 """
 
 from __future__ import annotations
@@ -40,7 +51,10 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
@@ -58,6 +72,7 @@ __all__ = [
     "mla_forward",
     "naive_attention",
     "chunked_attention",
+    "decode_attention",
 ]
 
 NEG_INF = -2.0**30
@@ -158,6 +173,141 @@ def chunked_attention(
     )
 
 
+DECODE_CHUNK = 8192   # cache slots scored at a time: bounds the float32 copies of k and v
+
+
+def decode_attention(
+    qs: list,               # query parts, each (B, Sq, H, D_i)
+    ks: list,               # key parts, the caches as stored, each (B, S, Hkv, D_i)
+    v: torch.Tensor,        # (B, S, Hkv, Dv): a cache, or one of ``ks`` itself
+    *,
+    q_pos: torch.Tensor,    # (Sq,) the queries' positions
+    scale: float,
+    k_pos=None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Attention of a few queries over a cache as it is stored: every
+    cached attention route (a KV cache, the ring, MLA's latent cache, the
+    encoder-decoder's cross cache).  Returns (B, Sq, H, Dv) in the queries'
+    dtype.
+
+    A query's score against slot ``j`` is ``scale * sum_i q_i . k_i`` in
+    float32, the grouped-query einsum never repeating K/V to the H query
+    heads.  ``k_pos`` maps the slots' indices (a tensor) to their
+    positions: a slot is attended where its position is at most the
+    query's and, with ``window``, above ``q_pos - window``; ``None``
+    attends every slot (a cross cache).  The slots are read
+    ``DECODE_CHUNK`` at a time, each chunk converted to float32 once (a
+    value that is one of the key parts, as MLA's latents are, with it),
+    under an online softmax.
+
+    DTensors run it on each rank's shard of the cache
+    (:func:`_decode_attention_sharded`): the cache never moves."""
+    v_key = next((i for i, k in enumerate(ks) if k is v), None)
+    if isinstance(v, DTensor):
+        return _decode_attention_sharded(qs, ks, v, v_key, q_pos=q_pos, scale=scale,
+                                         k_pos=k_pos, window=window)
+    return _decode_local(qs, ks, v, v_key, j0=0, q_pos=q_pos, scale=scale, k_pos=k_pos,
+                         window=window, score_groups=(), slot_groups=())
+
+
+def _decode_local(qs, ks, v, v_key, *, j0: int, q_pos, scale, k_pos, window, score_groups,
+                  slot_groups) -> torch.Tensor:
+    """:func:`decode_attention` on slots ``j0 .. j0 + S - 1`` (a rank's
+    shard); ``v_key``: the index of the key part that is the value, or
+    None.  ``score_groups``: the process groups over which the keys' width
+    is split (the scores are partial sums, reduced before the mask);
+    ``slot_groups``: those over which the slots are (the row maxima, the
+    exp-sums and the outputs are reduced: the flash-decoding combine)."""
+    b, sq, h, _ = qs[0].shape
+    s, hkv = ks[0].shape[1], ks[0].shape[2]
+    f32 = torch.float32
+    qg = [q.reshape(b, sq, hkv, h // hkv, q.shape[-1]).to(f32) for q in qs]
+    qp = q_pos.to(ks[0].device)
+    m = denom = out = None
+    for c in range(0, max(s, 1), DECODE_CHUNK):
+        kc = [k[:, c:c + DECODE_CHUNK].to(f32) for k in ks]
+        vc = kc[v_key] if v_key is not None else v[:, c:c + DECODE_CHUNK].to(f32)
+        scores = sum(torch.einsum("bqkgd,bskd->bkgqs", q, k)
+                     for q, k in zip(qg, kc)) * scale          # (B, kv, g, Sq, chunk)
+        for group in score_groups:
+            scores = funcol.all_reduce(scores, "sum", group)
+        if k_pos is not None:
+            kp = k_pos(j0 + c + torch.arange(scores.shape[-1], device=qp.device))
+            keep = kp[None, :] <= qp[:, None]
+            if window is not None:
+                keep = keep & (kp[None, :] > qp[:, None] - window)
+            scores = torch.where(keep, scores, NEG_INF)
+        m_c = scores.amax(dim=-1, keepdim=True)
+        m_new = m_c if m is None else torch.maximum(m, m_c)
+        p = torch.exp(scores - m_new)
+        o_c = torch.einsum("bkgqs,bskd->bkgqd", p, vc)
+        if m is None:
+            denom, out = p.sum(dim=-1, keepdim=True), o_c
+        else:
+            alpha = torch.exp(m - m_new)
+            denom, out = denom * alpha + p.sum(dim=-1, keepdim=True), out * alpha + o_c
+        m = m_new
+    if slot_groups:
+        m_all = m
+        for group in slot_groups:
+            m_all = funcol.all_reduce(m_all, "max", group)
+        alpha = torch.exp(m - m_all)
+        denom, out = denom * alpha, out * alpha
+        for group in slot_groups:
+            denom = funcol.all_reduce(denom, "sum", group)
+            out = funcol.all_reduce(out, "sum", group)
+    out = (out / denom).permute(0, 3, 1, 2, 4)                 # (B, Sq, kv, g, Dv)
+    return out.reshape(b, sq, h, out.shape[-1]).to(qs[0].dtype)
+
+
+def _decode_attention_sharded(qs, ks, v: DTensor, v_key, *, q_pos, scale, k_pos,
+                              window) -> DTensor:
+    """:func:`decode_attention` over a cache on a mesh, in one ``local_map``.
+
+    The cache's layout decides, per mesh dimension of its (B, S, Hkv, D)
+    view: the batch (``Shard(0)``) and the kv heads (``Shard(2)``, the
+    query heads in the same contiguous blocks) are independent; the slots
+    (``Shard(1)``: a KV cache's sequence, a ring's slots) take the
+    flash-decoding combine, each rank scoring its own slots at their global
+    positions and only the row maxima, the exp-sums and the (B, Sq, H, Dv)
+    output crossing the ranks; a split key width (``Shard(3)``, the layout
+    of ``cache_prefer="last"`` and of the cross cache) leaves each rank a
+    partial score, summed before the softmax, and the output split the same
+    way.  The queries are brought to that layout (whole over the slot
+    axes: (B, Sq, H, D) is small); the key parts take the value's layout
+    (the layouts ``state_shardings`` gives agree, so none moves)."""
+    mesh = v.device_mesh
+    layout = tuple(v.placements)
+    q_layout = tuple(Replicate() if p == Shard(1) else p for p in layout)
+    out_layout = q_layout
+    split = 1
+    for i, p in enumerate(layout):
+        if isinstance(p, Shard) and p.dim == 2:
+            split *= mesh.size(i)
+    if qs[0].shape[2] % split or v.shape[2] % split:
+        raise ValueError(f"decode_attention: {qs[0].shape[2]} query / {v.shape[2]} kv heads "
+                         f"over {split} ranks")
+    score_groups = tuple((mesh, i) for i, p in enumerate(layout) if p == Shard(3))
+    slot_groups = tuple((mesh, i) for i, p in enumerate(layout) if p == Shard(1))
+    j0 = common.local_range(v, 1)[0]
+    nq = len(qs)
+
+    vs = [] if v_key is not None else [v]   # a value that is a key part is passed once
+
+    def local(*args):
+        kl = list(args[nq:nq + len(ks)])
+        return (_decode_local(list(args[:nq]), kl, args[-1] if vs else None, v_key, j0=j0,
+                              q_pos=q_pos, scale=scale, k_pos=k_pos, window=window,
+                              score_groups=score_groups, slot_groups=slot_groups),)
+
+    qs = [q.redistribute(mesh, q_layout) for q in qs]
+    ks = [k.redistribute(mesh, layout) for k in ks]
+    return local_map(local, out_placements=(out_layout,),
+                     in_placements=(q_layout,) * nq + (layout,) * (len(ks) + len(vs)),
+                     device_mesh=mesh)(*qs, *ks, *vs)[0]
+
+
 def _flash_decode_attention(
     q: torch.Tensor,        # (B, 1, H, hd)
     k_cache: torch.Tensor,  # (B, S_max, Hkv, hd)
@@ -166,19 +316,38 @@ def _flash_decode_attention(
     *,
     scale: float,
 ) -> torch.Tensor:
-    """GQA decode in the sequence-sharded layout: the grouped-query einsum
-    consumes the cache as it is stored, never repeated to H heads.  Float32
-    scores, slots at and past ``new_len`` masked."""
-    b, s1, h, hd = q.shape
-    hkv = k_cache.shape[2]
-    qg = q.reshape(b, s1, hkv, h // hkv, hd)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
-                          k_cache.to(torch.float32)) * scale      # (B, kv, g, 1, S)
-    valid = torch.arange(k_cache.shape[1], device=q.device) < new_len
-    scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache.to(torch.float32))
-    return out.reshape(b, s1, h, hd).to(q.dtype)
+    """GQA decode in the sequence-sharded layout (the JAX package's
+    ``_flash_decode_attention``): :func:`decode_attention` of one query at
+    position ``new_len - 1`` over the slots below ``new_len``."""
+    return decode_attention([q], [k_cache], v_cache, q_pos=_positions(new_len - 1, 1, q),
+                            scale=scale, k_pos=_slot_positions)
+
+
+def _slot_positions(j: torch.Tensor) -> torch.Tensor:
+    """A KV cache's slot ``j`` holds position ``j``."""
+    return j
+
+
+def _fresh_positions(start: int):
+    """Fresh k/v of positions ``start ..``: slot ``j`` holds ``start + j``."""
+    return lambda j: start + j
+
+
+def _ring_positions(new_len: int, w: int):
+    """The positions of a ring of ``w`` slots after ``new_len`` tokens: slot
+    ``j`` holds ``new_len - 1 - ((new_len - 1 - j) mod w)``; an unwritten
+    slot maps negative and is pushed past every query, where the causal
+    mask drops it."""
+    def k_pos(j):
+        p = new_len - 1 - torch.remainder(new_len - 1 - j, w)
+        return torch.where(p >= 0, p, 2**30)
+    return k_pos
+
+
+def _positions(start: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    """Positions ``start .. start + n - 1`` (a plain tensor on ``like``'s
+    device)."""
+    return start + torch.arange(n, device=like.device)
 
 
 def _empty_cache_prefill(cache, s: int, use_chunked: bool) -> bool:
@@ -267,68 +436,51 @@ def attention_forward(
             q = common.apply_rope(q, pos, cfg.rope_theta)
             k = common.apply_rope(k, pos, cfg.rope_theta)
 
-    dev = x.device
+    scale = 1.0 / math.sqrt(hd)
     new_cache = None
-    if (cache is not None and kv_source is None and not ring and s == 1
-            and window is None):
-        # one-token decode (module docstring): the cache as stored
-        length = cache.length
-        cache.k[:, length:length + 1] = k.to(cache.k.dtype)
-        cache.v[:, length:length + 1] = v.to(cache.v.dtype)
-        new_cache = KVCache(cache.k, cache.v, length + 1)
-        out = _flash_decode_attention(q, cache.k, cache.v, length + 1,
-                                      scale=1.0 / math.sqrt(hd))
-    elif cache is not None and ring and kv_source is None:
+    if cache is not None and ring and kv_source is None:
         # --- sliding-window ring cache -------------------------------
         # slot of absolute position p is p % w; after the write the ring
         # holds the last min(L, w) tokens.
         w = cache.k.shape[1]
-        q_pos = cache.length + torch.arange(s, device=dev)
-        if s > w:  # only the last w tokens survive the write
-            k_w, v_w, pos_w = k[:, -w:], v[:, -w:], q_pos[-w:]
-        else:
-            k_w, v_w, pos_w = k, v, q_pos
-        slots = pos_w % w
-        cache.k[:, slots] = k_w.to(cache.k.dtype)
-        cache.v[:, slots] = v_w.to(cache.v.dtype)
+        common.cache_write_ring(cache.k, k, cache.length)
+        common.cache_write_ring(cache.v, v, cache.length)
         new_len = cache.length + s
         new_cache = KVCache(cache.k, cache.v, new_len)
         if s == 1:
-            # decode: attend the ring.  Slot j holds absolute position
-            # L−1−((L−1−j) mod w); unwritten slots map negative and are
-            # pushed past the query, where the causal mask drops them.
-            j = torch.arange(w, device=dev)
-            k_pos = new_len - 1 - torch.remainder(new_len - 1 - j, w)
-            k_pos = torch.where(k_pos >= 0, k_pos, 2**30)
-            out = naive_attention(q, cache.k, cache.v, mask_kind="causal",
-                                  q_pos=q_pos, k_pos=k_pos, window=w)
+            # decode: attend the ring at its slots' positions
+            out = decode_attention([q], [cache.k], cache.v, q_pos=_positions(cache.length, 1, q),
+                                   scale=scale, k_pos=_ring_positions(new_len, w), window=w)
         else:
             # prefill: exact windowed attention over the fresh k/v (early
             # tokens must still see their full in-window history, which the
-            # ring has overwritten)
-            attn = chunked_attention if use_chunked else naive_attention
-            out = attn(q, k, v, mask_kind="causal", window=w)
+            # ring has overwritten); a short one reads them as a cache of
+            # their own
+            if use_chunked:
+                out = chunked_attention(q, k, v, mask_kind="causal", window=w)
+            else:
+                out = decode_attention([q], [k], v, q_pos=_positions(cache.length, s, q),
+                                       scale=scale, k_pos=_fresh_positions(cache.length),
+                                       window=w)
     elif cross_cached:
         # cross-attention with a fixed memory: the cache holds projected k/v
-        out = naive_attention(q, cache.k, cache.v, mask_kind="full")
+        out = decode_attention([q], [cache.k], cache.v, q_pos=_positions(0, s, q), scale=scale)
         new_cache = cache
     elif cache is not None:
         # append this step's k/v at cache.length
         length = cache.length
-        cache.k[:, length:length + s] = k.to(cache.k.dtype)
-        cache.v[:, length:length + s] = v.to(cache.v.dtype)
+        common.cache_write(cache.k, k, length)
+        common.cache_write(cache.v, v, length)
         new_len = length + s
         new_cache = KVCache(cache.k, cache.v, new_len)
         if _empty_cache_prefill(cache, s, use_chunked):
             # the empty-cache prefill route (module docstring)
             out = chunked_attention(q, k, v, mask_kind="causal", window=window)
         else:
-            out = naive_attention(
-                q, cache.k, cache.v, mask_kind="causal",
-                q_pos=length + torch.arange(s, device=dev),
-                k_pos=torch.arange(cache.k.shape[1], device=dev),
-                kv_valid_len=new_len, window=window,
-            )
+            # every other cached call: the cache as it is stored (module
+            # docstring)
+            out = decode_attention([q], [cache.k], cache.v, q_pos=_positions(length, s, q),
+                                   scale=scale, k_pos=_slot_positions, window=window)
     else:
         attn = chunked_attention if use_chunked else naive_attention
         out = attn(q, k, v, mask_kind=mask_kind, window=window)
@@ -440,30 +592,25 @@ def mla_forward(
         out = out.reshape(b, s, cfg.n_heads * m.v_head_dim)
         new_cache = None
         if cache is not None:
-            cache.c_kv[:, :s] = c_kv.to(cache.c_kv.dtype)
-            cache.k_rope[:, :s] = k_rope[:, :, 0].to(cache.k_rope.dtype)
+            common.cache_write(cache.c_kv, c_kv, 0)
+            common.cache_write(cache.k_rope, k_rope[:, :, 0], 0)
             new_cache = MLACache(cache.c_kv, cache.k_rope, s)
         return linear(p.wo, out), new_cache
 
     # --- absorbed form over the compressed cache --------------------------
-    cache.c_kv[:, length:length + s] = c_kv.to(cache.c_kv.dtype)
-    cache.k_rope[:, length:length + s] = k_rope[:, :, 0].to(cache.k_rope.dtype)
+    common.cache_write(cache.c_kv, c_kv, length)
+    common.cache_write(cache.k_rope, k_rope[:, :, 0], length)
     new_len = length + s
     c_cache, r_cache = cache.c_kv, cache.k_rope
-    # absorb W_UK into q: q_lat (B, S, H, kv_lora) = q_nope . W_UK(head)^T
+    # absorb W_UK into q: q_lat (B, S, H, kv_lora) = q_nope . W_UK(head)^T;
+    # the latents are one kv head that keys (c_kv | k_rope) and values
+    # (c_kv) share
     w_uk = p.w_uk.w.reshape(m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim)
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
-    scores = (
-        torch.einsum("bshr,bkr->bhsk", q_lat, c_cache)
-        + torch.einsum("bshd,bkd->bhsk", q_rope, r_cache)
-    ).to(torch.float32) * scale
-    k_positions = torch.arange(c_cache.shape[1], device=dev)
-    causal = k_positions[None, None, None, :] <= k_pos[None, None, :, None]
-    valid = k_positions[None, None, None, :] < new_len
-    scores = torch.where(causal & valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)   # cast before the latent product
-    # attend in latent space, then decompress once per query token
-    lat = torch.einsum("bhsk,bkr->bshr", probs, c_cache)
+    c_heads = c_cache.unsqueeze(2)
+    lat = decode_attention([q_lat, q_rope], [c_heads, r_cache.unsqueeze(2)], c_heads,
+                           q_pos=k_pos, scale=scale, k_pos=_slot_positions)
+    # decompress once per query token
     w_uv = p.w_uv.w.reshape(m.kv_lora_rank, cfg.n_heads, m.v_head_dim)
     out = torch.einsum("bshr,rhd->bshd", lat, w_uv).reshape(b, s, cfg.n_heads * m.v_head_dim)
     return linear(p.wo, out), MLACache(c_cache, r_cache, new_len)

@@ -51,6 +51,11 @@ __all__ = [
     "split_heads",
     "merge_heads",
     "embed_lookup",
+    "cache_layer",
+    "cache_write",
+    "cache_write_ring",
+    "cache_set",
+    "local_range",
     "SumAcross",
     "GradIf",
 ]
@@ -146,7 +151,7 @@ def rmsnorm(p: RMSNorm | torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6) ->
 def _rope_angles(positions: torch.Tensor, dim: int, theta: float) -> torch.Tensor:
     """(…, dim/2) rotation angles for integer positions, in float32."""
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
-    inv_freq = 1.0 / torch.pow(theta, exps)
+    inv_freq = replicated_like(1.0 / torch.pow(theta, exps), positions)
     return positions[..., None].to(torch.float32) * inv_freq
 
 
@@ -219,6 +224,98 @@ def layout_of(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     if isinstance(x, DTensor) and isinstance(like, DTensor) and x.placements != like.placements:
         return x.redistribute(like.device_mesh, like.placements)
     return x
+
+
+# ----------------------------------------------------------------------
+# Decode caches
+# ----------------------------------------------------------------------
+#
+# A cache leaf on a mesh is a DTensor in ``runtime.sharding.state_shardings``'
+# layout: the batch over the data axes and one more axis (a KV cache's
+# sequence or head width, a ring's slots, a state's last axis) over
+# "model".  Every write below lands on the ranks that own the positions it
+# writes, each rank into its own shard; nothing else of the leaf moves.
+
+
+def cache_layer(leaf: torch.Tensor, *index: int) -> torch.Tensor:
+    """``leaf[index]`` for integer indices of its stacked layer axes: a view
+    that writes reach.  A DTensor sharded along one of those axes is
+    refused (DTensor would gather it, and a write would land in a copy)."""
+    if isinstance(leaf, DTensor) and any(isinstance(p, Shard) and p.dim < len(index)
+                                         for p in leaf.placements):
+        raise ValueError(f"a cache leaf {tuple(leaf.shape)} sharded along a stacked layer axis "
+                         f"({leaf.placements}) has no per-layer view")
+    return leaf[index]
+
+
+def _slab(leaf: DTensor, values: torch.Tensor, dim: int) -> torch.Tensor:
+    """The local block of ``values`` (``leaf``'s shape but along ``dim``)
+    in ``leaf``'s layout with ``dim`` whole: every rank's share of the
+    other dimensions, and all of ``dim``."""
+    mesh = leaf.device_mesh
+    pl = tuple(Replicate() if p == Shard(dim) else p for p in leaf.placements)
+    if not isinstance(values, DTensor):
+        values = DTensor.from_local(values, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return values.to(leaf.dtype).redistribute(mesh, pl).to_local()
+
+
+def local_range(leaf: DTensor, dim: int) -> tuple[int, int]:
+    """(first global index, count) of ``leaf``'s local shard along ``dim``."""
+    shape, offset = compute_local_shape_and_global_offset(leaf.shape, leaf.device_mesh,
+                                                          leaf.placements)
+    return offset[dim], shape[dim]
+
+
+def cache_write(leaf: torch.Tensor, values: torch.Tensor, start: int, *, dim: int = 1) -> None:
+    """``leaf[..., start:start + n, ...] = values`` along ``dim`` (``n`` =
+    ``values.shape[dim]``), in place.  A DTensor leaf: each rank writes the
+    part of ``values`` that falls in its own range of ``dim`` (none where
+    the range misses it), the values first brought to the leaf's layout
+    with ``dim`` whole."""
+    n = values.shape[dim]
+    if not isinstance(leaf, DTensor):
+        leaf[(slice(None),) * dim + (slice(start, start + n),)] = values.to(leaf.dtype)
+        return
+    vals = _slab(leaf, values, dim)
+    lo, size = local_range(leaf, dim)
+    a, b = max(lo, start), min(lo + size, start + n)
+    if a < b:
+        leaf.to_local().narrow(dim, a - lo, b - a).copy_(vals.narrow(dim, a - start, b - a))
+
+
+def cache_write_ring(leaf: torch.Tensor, values: torch.Tensor, start: int, *,
+                     dim: int = 1) -> None:
+    """The ring form of :func:`cache_write`: ``values`` of positions
+    ``start ..`` written at slots ``position % w`` (``w = leaf.shape[dim]``),
+    only the last ``w`` of them when there are more.  A DTensor leaf: each
+    rank writes the slots in its own range."""
+    w, n = leaf.shape[dim], values.shape[dim]
+    if n > w:   # only the last w tokens survive the write
+        values, start, n = values.narrow(dim, n - w, w), start + n - w, w
+    slots = (start + torch.arange(n, device=values.device)) % w
+    if not isinstance(leaf, DTensor):
+        leaf[(slice(None),) * dim + (slots,)] = values.to(leaf.dtype)
+        return
+    vals = _slab(leaf, values, dim)
+    lo, size = local_range(leaf, dim)
+    slots = slots.to(vals.device)
+    here = torch.nonzero((slots >= lo) & (slots < lo + size))[:, 0]
+    if here.numel():
+        leaf.to_local().index_copy_(dim, slots[here] - lo, vals.index_select(dim, here))
+
+
+def cache_set(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[...] = src`` in place, ``dst`` a cache leaf's (per-layer) view
+    and ``src`` of its shape: a DTensor ``src`` is brought to ``dst``'s
+    layout first (a state computed in its heads' layout goes back to the
+    cache's), and each rank writes its own shard."""
+    if not isinstance(dst, DTensor):
+        dst[...] = src.to(dst.dtype)
+        return
+    mesh = dst.device_mesh
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(src, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    dst.to_local().copy_(src.to(dst.dtype).redistribute(mesh, dst.placements).to_local())
 
 
 def _whole_over_uneven(t: torch.Tensor, dim: int, units: int) -> torch.Tensor:

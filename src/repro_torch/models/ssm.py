@@ -23,9 +23,11 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
@@ -152,13 +154,11 @@ def mamba2_forward(
     final state is exactly the state after the real tokens.
 
     A DTensor ``x`` (parameters placed by ``runtime.sharding``) takes
-    :func:`_mamba2_forward_sharded`; it runs without a state and returns
+    :func:`_mamba2_forward_sharded`; without a state (training) it returns
     the final SSM state alone (``conv`` None).
     """
     if isinstance(x, DTensor):
-        if state is not None:
-            raise ValueError("the sharded Mamba2 layer runs from an empty state")
-        return _mamba2_forward_sharded(cfg, p, x)
+        return _mamba2_forward_sharded(cfg, p, x, state)
     bsz, s_in, _ = x.shape
     d_inner, n_heads, n_state = _mamba_dims(cfg)
     hd = cfg.mamba_headdim
@@ -221,7 +221,8 @@ def _mamba_in(cfg: ModelConfig, heads: tuple[int, int], lead: bool, x, w, conv_w
             torch.cat([x_state, bc_state], dim=-1))
 
 
-def _mamba2_forward_sharded(cfg: ModelConfig, p: Mamba2, x: DTensor):
+def _mamba2_forward_sharded(cfg: ModelConfig, p: Mamba2, x: DTensor,
+                            state: MambaState | None = None):
     """:func:`mamba2_forward` of a DTensor ``x`` (the residual stream: the
     batch over the data axes, whole over ``"model"``).
 
@@ -237,7 +238,14 @@ def _mamba2_forward_sharded(cfg: ModelConfig, p: Mamba2, x: DTensor):
     B5-bwd on local shards).  The skip, the gate, the norm over all of
     d_inner (its mean of squares summed across the head shards) and the
     out-projection (its rows split over ``"model"`` as the heads are) are
-    DTensor ops; the output is ``Partial`` over ``"model"``."""
+    DTensor ops; the output is ``Partial`` over ``"model"``.
+
+    With a ``state`` (a prefill into a decode cache, in the cache's layout:
+    ``h`` split on N, ``conv`` on its channels), the scan starts from
+    ``h`` (B5's route brings it to the heads' layout) and the conv from the
+    cached tail (gathered whole: (B, K-1, channels) is small); the final
+    state comes back in the heads' layout and the new tail whole, and the
+    caller writes both into the cache (``common.cache_set``)."""
     mesh = x.device_mesh
     names = mesh.mesh_dim_names or ()
     _, n_heads, n_state = _mamba_dims(cfg)
@@ -261,33 +269,48 @@ def _mamba2_forward_sharded(cfg: ModelConfig, p: Mamba2, x: DTensor):
         heads, lead = (0, n_heads), True
     weights = tuple(t.redistribute(mesh, whole) for t in
                     (p.in_proj.w, p.conv_w, p.conv_b, p.dt_bias, p.a_log))
+    tail_in = () if state is None else (state.conv.redistribute(mesh, x_pl),)
+    x_cols = (heads[1] - heads[0]) * hd
 
-    def local(xl, w, cw, cb, dtb, al):
-        return _mamba_in(cfg, heads, lead, xl, w, cw, cb, dtb, al)[:6]
+    def local(xl, w, cw, cb, dtb, al, *tail):
+        out = _mamba_in(cfg, heads, lead, xl, w, cw, cb, dtb, al, *tail)
+        if not tail:
+            return out[:6]
+        # the new conv tail: this rank's heads' x channels, and B and C's
+        return (*out[:6], out[6][..., :x_cols], out[6][..., x_cols:])
 
-    z, xh, dt, ld, bm, cm = local_map(
-        local, out_placements=(heads_pl,) * 4 + (x_pl, x_pl),
-        in_placements=(x_pl,) + (whole,) * len(weights),
-        in_grad_placements=(x_grad,) + (summed,) * len(weights),
-        device_mesh=mesh)(x, *weights)
-    b_local = x.to_local().shape[0]
-    h0_pl = tuple(Shard(1) if pl == Shard(2) else pl for pl in heads_pl)
-    h0_local = torch.zeros((b_local, heads[1] - heads[0], hd, n_state), dtype=torch.float32,
-                           device=x.to_local().device)
-    h0 = DTensor.from_local(h0_local, mesh, h0_pl, run_check=False)
+    outs = local_map(
+        local, out_placements=(heads_pl,) * 4 + (x_pl, x_pl) + (heads_pl, x_pl)[:2 * len(tail_in)],
+        in_placements=(x_pl,) + (whole,) * len(weights) + (x_pl,) * len(tail_in),
+        in_grad_placements=(x_grad,) + (summed,) * len(weights) + (x_pl,) * len(tail_in),
+        device_mesh=mesh)(x, *weights, *tail_in)
+    z, xh, dt, ld, bm, cm = outs[:6]
+    if state is None:
+        b_local = x.to_local().shape[0]
+        h0_pl = tuple(Shard(1) if pl == Shard(2) else pl for pl in heads_pl)
+        h0_local = torch.zeros((b_local, heads[1] - heads[0], hd, n_state), dtype=torch.float32,
+                               device=x.to_local().device)
+        h0 = DTensor.from_local(h0_local, mesh, h0_pl, run_check=False)
+        conv = None
+    else:
+        h0 = state.h
+        conv = torch.cat([outs[6].redistribute(mesh, x_pl), outs[7]], dim=-1)
     y, h_final = ops.mamba_chunk_scan(xh, dt, ld, bm, cm, h0, chunk=min(cfg.ssm_chunk, s_in))
     y = y + p.d_skip[None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(*y.shape[:2], n_heads * hd).to(x.dtype)
     y = common.rmsnorm(p.norm, y * F.silu(z), eps=cfg.norm_eps)
     if y.shape[1] != s_in:
         y = y[:, :s_in]
-    return linear(p.out_proj, y), MambaState(h=h_final, conv=None)
+    return linear(p.out_proj, y), MambaState(h=h_final, conv=conv)
 
 
 def mamba2_step(
     cfg: ModelConfig, p: Mamba2, x: torch.Tensor, state: MambaState
 ) -> tuple[torch.Tensor, MambaState]:
-    """Single-token recurrence (decode path).  x: (B, 1, d)."""
+    """Single-token recurrence (decode path).  x: (B, 1, d).  A DTensor
+    ``x`` takes :func:`_mamba2_step_sharded`."""
+    if isinstance(x, DTensor):
+        return _mamba2_step_sharded(cfg, p, x, state)
     bsz = x.shape[0]
     d_inner, n_heads, _ = _mamba_dims(cfg)
     z, xh, dt, ld, b, c, conv_state = _mamba_in(
@@ -306,6 +329,65 @@ def mamba2_step(
     y = y.reshape(bsz, 1, d_inner).to(x.dtype)
     y = common.rmsnorm(p.norm, y * F.silu(z), eps=cfg.norm_eps)
     return linear(p.out_proj, y), MambaState(h=h, conv=conv_state)
+
+
+def _mamba2_step_sharded(cfg: ModelConfig, p: Mamba2, x: DTensor,
+                         state: MambaState) -> tuple[DTensor, MambaState]:
+    """:func:`mamba2_step` of a DTensor ``x``, the state in the cache's
+    layout (``h`` (B, H, P, N) split on N over ``"model"``, the conv tail
+    on its channels).
+
+    The in-projection's output (B, 1, 2·d_inner + 2N + H) is gathered
+    whole over ``"model"`` (the weight stays where it lies), and so is the
+    conv tail; then one ``local_map``: every rank runs the conv and the
+    gates of all heads, and updates its own block of ``h`` in place of the
+    whole (``h·g + dt·x·B`` needs B's entries of its N only); ``y = C·h``
+    over a split N is a partial sum on each rank, all-reduced (a split H
+    or P is all-gathered), then the skip, the gate and the norm.  One map,
+    not a DTensor op a step of it: a decode step is host-bound.  Returns
+    the out-projection's output and the new state (``h`` split as the
+    cache's, the batch as x's; the tail whole)."""
+    mesh = x.device_mesh
+    d_inner, n_heads, n_state = _mamba_dims(cfg)
+    hd = cfg.mamba_headdim
+    x_pl = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in x.placements)
+    whole = tuple(Replicate() for _ in x_pl)
+    x = x.redistribute(mesh, x_pl)
+    proj = linear(p.in_proj, x).redistribute(mesh, x_pl)
+    tail = state.conv.redistribute(mesh, x_pl)
+    # h's own split, the batch as x's (the two differ where the cache's
+    # batch is whole: ``transformer._stacks_whole``)
+    h_pl = tuple(Shard(0) if xp == Shard(0) else Replicate() if hp == Shard(0) else hp
+                 for xp, hp in zip(x_pl, state.h.placements))
+    h_in = state.h.redistribute(mesh, h_pl)
+    shape, offset = compute_local_shape_and_global_offset(state.h.shape, mesh, h_pl)
+    (h0, h1), (p0, p1), (n0, n1) = ((offset[d], offset[d] + shape[d]) for d in (1, 2, 3))
+    weights = tuple(t.redistribute(mesh, whole) for t in
+                    (p.conv_w, p.conv_b, p.dt_bias, p.a_log, p.d_skip, p.norm.scale))
+
+    def local(pl, tl, hl, cw, cb, dtb, al, skip, scale):
+        z = pl[..., :d_inner]
+        xbc, new_tail = _causal_conv(cw, cb, pl[..., d_inner:2 * d_inner + 2 * n_state], tl)
+        xs, bm, cm = torch.split(xbc[:, 0].to(torch.float32), [d_inner, n_state, n_state], -1)
+        dt = F.softplus(pl[:, 0, 2 * d_inner + 2 * n_state:].to(torch.float32) + dtb)   # (B, H)
+        g = torch.exp(dt * -torch.exp(al))
+        xh = xs.reshape(-1, n_heads, hd)
+        h = hl * g[:, h0:h1, None, None] + (
+            dt[:, h0:h1, None, None] * xh[:, h0:h1, p0:p1, None] * bm[:, None, None, n0:n1])
+        y = torch.einsum("bk,bhpk->bhp", cm[:, n0:n1], h)
+        for i, hp in enumerate(h_pl):
+            if hp == Shard(3):
+                y = funcol.all_reduce(y, "sum", (mesh, i))
+            elif hp in (Shard(1), Shard(2)):
+                y = funcol.all_gather_tensor(y, hp.dim, (mesh, i))
+        y = (y + skip[None, :, None] * xh).reshape(-1, 1, d_inner).to(pl.dtype)
+        return common.rmsnorm(scale, y * F.silu(z), eps=cfg.norm_eps), h, new_tail
+
+    y, h, new_tail = local_map(
+        local, out_placements=(x_pl, h_pl, x_pl),
+        in_placements=(x_pl, x_pl, h_pl) + (whole,) * len(weights),
+        device_mesh=mesh)(proj, tail, h_in, *weights)
+    return linear(p.out_proj, y), MambaState(h=h, conv=new_tail)
 
 
 # ======================================================================
@@ -403,22 +485,26 @@ def mlstm_forward(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
 
     A DTensor ``x`` runs the recurrence on each rank's batch and heads in
     one ``local_map`` (:func:`_recurrence_sharded`: a loop of S steps of
-    DTensor ops would dispatch S times a layer); it starts from an empty
-    state and returns no state."""
+    DTensor ops would dispatch S times a layer), from ``state`` (a decode
+    cache's, in the cache's layout) or an empty one; it returns the final
+    state in the heads' layout, or no state without one."""
     bsz, s, _ = x.shape
     _, up, _ = _mlstm_dims(cfg)
     q, k, v, i_raw, f_raw, z = _mlstm_qkv(cfg, p, x)
     if isinstance(x, DTensor):
-        if state is not None:
-            raise ValueError("the sharded mLSTM runs from an empty state")
 
-        def scan(ql, kl, vl, il, fl):   # the rank's heads of an empty state
-            st = mlstm_init_state(cfg, ql.shape[0], device=ql.device)
-            st = XLSTMState(*(t[:, :ql.shape[2]] for t in st))
-            return _mlstm_loop(ql, kl, vl, il, fl, st)[0]
+        def scan(ql, kl, vl, il, fl, *st):   # the rank's heads
+            if not st:   # an empty state
+                st = mlstm_init_state(cfg, ql.shape[0], device=ql.device)
+                return _mlstm_loop(ql, kl, vl, il, fl,
+                                   XLSTMState(*(t[:, :ql.shape[2]] for t in st)))[0]
+            h, new = _mlstm_loop(ql, kl, vl, il, fl, XLSTMState(*st))
+            return (h, *new)
 
-        h = _recurrence_sharded(scan, q, (q, k, v, i_raw, f_raw), (2, 2, 2, 2, 2), ())
-        return _mlstm_out(cfg, p, common.merge_heads(h), z, x.dtype), None
+        out = _recurrence_sharded(scan, q, (q, k, v, i_raw, f_raw), (2, 2, 2, 2, 2), (),
+                                  state=() if state is None else tuple(state))
+        h, new = (out, None) if state is None else (out[0], XLSTMState(*out[1:]))
+        return _mlstm_out(cfg, p, common.merge_heads(h), z, x.dtype), new
     st = state if state is not None else mlstm_init_state(cfg, bsz, device=x.device)
     h, st = _mlstm_loop(q, k, v, i_raw, f_raw, st)
     return _mlstm_out(cfg, p, h.reshape(bsz, s, up), z, x.dtype), st
@@ -434,14 +520,19 @@ def _mlstm_loop(q, k, v, i_raw, f_raw, st: XLSTMState):
     return torch.stack(hs, dim=1), st
 
 
-def _recurrence_sharded(fn, like: DTensor, args: tuple, head_dims: tuple, params: tuple):
-    """``fn(*local args, *local params)`` -> (B, S, H, P) on each rank's batch
-    and heads, for DTensor ``args`` whose dimension ``head_dims[i]`` holds
-    the heads and parameters whose dimension 1 does.  ``like``'s layout
-    (the batch over the data axes) decides the batch; the heads split over
-    ``"model"`` when it divides them, else every rank takes them all.  A
-    parameter is gathered over the other axes, its gradient the sum of the
-    batch shards' parts."""
+def _recurrence_sharded(fn, like: DTensor, args: tuple, head_dims: tuple, params: tuple,
+                        state: tuple = ()):
+    """``fn(*local args, *local params, *local state)`` -> (B, S, H, P) on
+    each rank's batch and heads, for DTensor ``args`` whose dimension
+    ``head_dims[i]`` holds the heads, parameters whose dimension 1 does, and
+    recurrent ``state`` tensors (B, H, ...), whose dimension 1 does; with a
+    state, ``fn`` returns ``(h, *new state)`` and so does this, the new
+    state in the heads' layout.  ``like``'s layout (the batch over the data
+    axes) decides the batch; the heads split over ``"model"`` when it
+    divides them, else every rank takes them all.  A parameter is gathered
+    over the other axes, its gradient the sum of the batch shards' parts;
+    a state arriving in another layout (a cache's) is brought to the
+    heads'."""
     mesh = like.device_mesh
     names = mesh.mesh_dim_names or ()
     n_heads = args[0].shape[head_dims[0]]
@@ -460,14 +551,20 @@ def _recurrence_sharded(fn, like: DTensor, args: tuple, head_dims: tuple, params
               for _ in params]
     par_grad = [tuple(Partial() if i in batch else pl for i, pl in enumerate(pl_))
                 for pl_ in par_pl]
-    placed = [t.redistribute(mesh, pl) for t, pl in zip((*args, *params), (*arg_pl, *par_pl))]
-    return local_map(fn, out_placements=(layout(2),), in_placements=(*arg_pl, *par_pl),
-                     in_grad_placements=(*arg_pl, *par_grad), device_mesh=mesh)(*placed)
+    st_pl = [layout(1)] * len(state)
+    placed = [t.redistribute(mesh, pl) for t, pl in
+              zip((*args, *params, *state), (*arg_pl, *par_pl, *st_pl))]
+    return local_map(fn, out_placements=(layout(2), *st_pl),
+                     in_placements=(*arg_pl, *par_pl, *st_pl),
+                     in_grad_placements=(*arg_pl, *par_grad, *st_pl), device_mesh=mesh)(*placed)
 
 
 def mlstm_step(cfg: ModelConfig, p: MLSTM, x: torch.Tensor,
                state: XLSTMState) -> tuple[torch.Tensor, XLSTMState]:
-    """One-token mLSTM decode step.  x: (B, 1, d)."""
+    """One-token mLSTM decode step.  x: (B, 1, d).  A DTensor ``x`` runs
+    :func:`mlstm_forward`'s sharded recurrence on its one token."""
+    if isinstance(x, DTensor):
+        return mlstm_forward(cfg, p, x, state)
     bsz = x.shape[0]
     _, up, _ = _mlstm_dims(cfg)
     q, k, v, i_raw, f_raw, z = _mlstm_qkv(cfg, p, x)
@@ -549,27 +646,30 @@ def slstm_forward(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
 
     A DTensor ``x`` runs the recurrence on each rank's batch and heads in
     one ``local_map`` (:func:`_recurrence_sharded`), with ``r`` and the
-    biases gathered once a layer; it starts from an empty state and
-    returns no state."""
+    biases gathered once a layer, from ``state`` (a decode cache's) or an
+    empty one; it returns the final state in the heads' layout, or no
+    state without one."""
     bsz, s, d = x.shape
     n_heads, hd = _xlstm_dims(cfg)
     gates = linear(p.w_in, x)
     if isinstance(x, DTensor):
-        if state is not None:
-            raise ValueError("the sharded sLSTM runs from an empty state")
         # whole over every rank first: the split of 4·d columns falls
         # across gates and heads alike
         gates = gates.redistribute(gates.device_mesh, tuple(
             pl if pl == Shard(0) else Replicate() for pl in gates.placements))
         gates = gates.reshape(bsz, s, 4, n_heads, hd)
 
-        def scan(gl, r, bias):   # the rank's heads of an empty state
-            st = slstm_init_state(cfg, gl.shape[0], device=gl.device)
-            st = XLSTMState(*(t[:, :gl.shape[3]] for t in st))
-            return _slstm_loop(r, bias, gl, st)[0]
+        def scan(gl, r, bias, *st):   # the rank's heads
+            if not st:   # an empty state
+                st = slstm_init_state(cfg, gl.shape[0], device=gl.device)
+                return _slstm_loop(r, bias, gl, XLSTMState(*(t[:, :gl.shape[3]] for t in st)))[0]
+            h, new = _slstm_loop(r, bias, gl, XLSTMState(*st))
+            return (h, *new)
 
-        h = _recurrence_sharded(scan, x, (gates,), (3,), (p.r, p.b))
-        return _slstm_out(cfg, p, common.merge_heads(h), x.dtype), None
+        out = _recurrence_sharded(scan, x, (gates,), (3,), (p.r, p.b),
+                                  state=() if state is None else tuple(state))
+        h, new = (out, None) if state is None else (out[0], XLSTMState(*out[1:]))
+        return _slstm_out(cfg, p, common.merge_heads(h), x.dtype), new
     st = state if state is not None else slstm_init_state(cfg, bsz, device=x.device)
     h, st = _slstm_loop(p.r, p.b, gates.reshape(bsz, s, 4, n_heads, hd), st)
     return _slstm_out(cfg, p, h.reshape(bsz, s, d), x.dtype), st
@@ -587,7 +687,10 @@ def _slstm_loop(r, bias, gates_in, st: XLSTMState):
 
 def slstm_step(cfg: ModelConfig, p: SLSTM, x: torch.Tensor,
                state: XLSTMState) -> tuple[torch.Tensor, XLSTMState]:
-    """One-token sLSTM decode step.  x: (B, 1, d)."""
+    """One-token sLSTM decode step.  x: (B, 1, d).  A DTensor ``x`` runs
+    :func:`slstm_forward`'s sharded recurrence on its one token."""
+    if isinstance(x, DTensor):
+        return slstm_forward(cfg, p, x, state)
     bsz, _, d = x.shape
     n_heads, hd = _xlstm_dims(cfg)
     h, st = _slstm_inner_step(p.r, p.b, linear(p.w_in, x).reshape(bsz, 4, n_heads, hd), state)

@@ -53,7 +53,7 @@ import math
 import torch
 import torch.utils.checkpoint
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mcop_phase import require_device
@@ -119,6 +119,69 @@ def _default_positions(cfg: ModelConfig, b: int, s: int, batch: dict, *, device)
 
 def _lm_logits(cfg: ModelConfig, params: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return linear(params.lm_head, rmsnorm(params.final_norm, x, eps=cfg.norm_eps))
+
+
+def _serving_logits(cfg: ModelConfig, params: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The (B, V) logits of the last position of ``x`` (B, 1, d).  On a
+    mesh they leave in the layout of the serving cell's outputs
+    (``runtime.sharding.input_shardings``): the batch as the residual
+    stream's (over the data axes, when they divide it), whole over the
+    others, where the LM head gives the vocabulary split over "model"."""
+    logits = _lm_logits(cfg, params, x)[:, 0]
+    if isinstance(logits, DTensor):
+        pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in x.placements)
+        logits = logits.redistribute(logits.device_mesh, pl)
+    return logits
+
+
+def _stacks_whole(cache: dict, n_stacked: int = 1):
+    """``cache`` with every DTensor leaf that is split along one of its
+    stacked layer axes (two for the ``mamba`` and ``mlstm`` states, one
+    elsewhere) brought to a layout where those axes are whole, so that each
+    layer's slice is a view on every rank (``common.cache_layer``); and
+    ``{id(working leaf): (working leaf, leaf)}`` for
+    :func:`_stacks_written_back`.
+
+    ``state_shardings`` splits over the data axes the first axis equal to
+    the batch size, as the reference does: at batch 2, zamba2's Mamba2
+    states ``(groups, every = 2, B, ...)`` have ``every`` over "data" and
+    the batch whole.  Such a leaf moves whole over those axes for the call
+    (a state: the KV caches' stacked axis is the layers'), and is written
+    back into its own layout after it."""
+    work, back = {}, {}
+    for key, leaf in cache.items():
+        if isinstance(leaf, dict):
+            work[key], sub = _stacks_whole(leaf, 2 if key in ("mamba", "mlstm") else 1)
+            back.update(sub)
+            continue
+        pl = getattr(leaf, "placements", ())
+        if any(isinstance(p, Shard) and p.dim < n_stacked for p in pl):
+            whole = tuple(Replicate() if isinstance(p, Shard) and p.dim < n_stacked else p
+                          for p in pl)
+            work[key] = leaf.redistribute(leaf.device_mesh, whole)
+            back[id(work[key])] = (work[key], leaf)
+        else:
+            work[key] = leaf
+    return (work, back) if back else (cache, back)
+
+
+def _stacks_written_back(cache: dict, back: dict) -> dict:
+    """``cache`` (a step's result on the working leaves of
+    :func:`_stacks_whole`) with each working leaf written into its own
+    leaf, which takes its place."""
+    if not back:
+        return cache
+    out = {}
+    for key, leaf in cache.items():
+        if isinstance(leaf, dict):
+            out[key] = _stacks_written_back(leaf, back)
+        elif id(leaf) in back:
+            work, own = back[id(leaf)]
+            common.cache_set(own, work)
+            out[key] = own
+        else:
+            out[key] = leaf
+    return out
 
 
 def _body(fn, remat: bool):
@@ -217,7 +280,8 @@ def _run_decoder_stack(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor, *,
     keys = ("c_kv", "k_rope") if cfg.attn_kind == "mla" else ("k", "v")
     for prefix, blocks in (("dense0/", params.dense0), ("main/", params.blocks)):
         for i, p in enumerate(blocks or ()):
-            c = None if cache is None else {k: cache[prefix + k][i] for k in keys}
+            c = None if cache is None else {k: common.cache_layer(cache[prefix + k], i)
+                                            for k in keys}
 
             def block(x_, p=p, c=c):
                 return _decoder_block(cfg, p, x_, positions=positions, cache=c,
@@ -321,12 +385,14 @@ def _run_decoder_encdec(cfg: ModelConfig, params: EncDecLM, x: torch.Tensor,
         def block(x, memory, i=i, p=p):
             h = rmsnorm(p.ln1, x, eps=cfg.norm_eps)
             self_c = (None if cache is None
-                      else attn_lib.KVCache(cache["self_k"][i], cache["self_v"][i], length))
+                      else attn_lib.KVCache(common.cache_layer(cache["self_k"], i),
+                                            common.cache_layer(cache["self_v"], i), length))
             a, _ = attn_lib.attention_forward(cfg, p.self_attn, h, positions=pos, cache=self_c)
             x = common.layout_of(x + a, x)
             h = rmsnorm(p.ln_x, x, eps=cfg.norm_eps)
             if cache is not None:
-                cross_c = attn_lib.KVCache(cache["cross_k"][i], cache["cross_v"][i], 0)
+                cross_c = attn_lib.KVCache(common.cache_layer(cache["cross_k"], i),
+                                           common.cache_layer(cache["cross_v"], i), 0)
                 a, _ = attn_lib.attention_forward(cfg, p.cross_attn, h, positions=pos,
                                                   cache=cross_c, kv_source=h)
             else:
@@ -419,19 +485,21 @@ def _zamba_group(cfg: ModelConfig, params: ZambaLM, g: int, group, x: torch.Tens
     for i, p_m in enumerate(group):
         st = None
         if cache is not None:
-            st = ssm.MambaState(cache["mamba"]["h"][g, i], cache["mamba"]["conv"][g, i])
+            st = ssm.MambaState(common.cache_layer(cache["mamba"]["h"], g, i),
+                                common.cache_layer(cache["mamba"]["conv"], g, i))
         if decode:
             y, new_st = ssm.mamba2_step(cfg, p_m, x, st)
         else:
             y, new_st = ssm.mamba2_forward(cfg, p_m, x, st)
         x = common.layout_of(x + y, x)
         if cache is not None:
-            cache["mamba"]["h"][g, i] = new_st.h
-            cache["mamba"]["conv"][g, i] = new_st.conv
+            common.cache_set(st.h, new_st.h)
+            common.cache_set(st.conv, new_st.conv)
 
     h = rmsnorm(params.shared_ln[g], x, eps=cfg.norm_eps)
     if cache is not None:
-        kv = attn_lib.KVCache(cache["attn_k"][g], cache["attn_v"][g], length)
+        kv = attn_lib.KVCache(common.cache_layer(cache["attn_k"], g),
+                              common.cache_layer(cache["attn_v"], g), length)
         a, _ = attn_lib.attention_forward(
             cfg, params.shared_attn, h, positions=positions, cache=kv,
             window=ZAMBA_WINDOW, ring=True, use_chunked=s > 4096,
@@ -507,21 +575,22 @@ def _xlstm_group(cfg: ModelConfig, params: XLSTMLM, g: int, group, x: torch.Tens
     for i, p in enumerate(group):
         h = rmsnorm(params.ln_m[g, i], x, eps=cfg.norm_eps)
         st = (None if cache is None
-              else ssm.XLSTMState(*(cache["mlstm"][f][g, i] for f in fields)))
+              else ssm.XLSTMState(*(common.cache_layer(cache["mlstm"][f], g, i)
+                                    for f in fields)))
         step = ssm.mlstm_step if decode else ssm.mlstm_forward
         y, new = step(cfg, p, h, st)
         x = common.layout_of(x + y, x)
         if cache is not None:
-            for f in fields:
-                cache["mlstm"][f][g, i] = getattr(new, f)
+            for dst, src in zip(st, new):
+                common.cache_set(dst, src)
     h = rmsnorm(params.ln_s[g], x, eps=cfg.norm_eps)
     st = (None if cache is None
-          else ssm.XLSTMState(*(cache["slstm"][f][g] for f in fields)))
+          else ssm.XLSTMState(*(common.cache_layer(cache["slstm"][f], g) for f in fields)))
     step = ssm.slstm_step if decode else ssm.slstm_forward
     y, new = step(cfg, params.slstm[g], h, st)
     if cache is not None:
-        for f in fields:
-            cache["slstm"][f][g] = getattr(new, f)
+        for dst, src in zip(st, new):
+            common.cache_set(dst, src)
     return common.layout_of(x + y, x)
 
 
@@ -678,6 +747,7 @@ class Model:
         M-RoPE, optional ``positions`` (B, S, 3).  Returns last-position
         logits (B, V) and the cache."""
         cfg = self.cfg
+        cache, back = _stacks_whole(cache)
         if cfg.family in ("dense", "moe", "vlm"):
             x = _embed_tokens(cfg, params, batch)
             b, s = batch["tokens"].shape
@@ -686,15 +756,16 @@ class Model:
                                              use_chunked=s > CHUNKED_ABOVE)
         elif cfg.family == "encdec":
             memory = _run_encoder(cfg, params, batch["frame_embeds"])
-            b, sk, _ = memory.shape
-            # the cross-attention k/v are projected once; decoding reuses them
-            cache["cross_k"] = torch.stack([
-                linear(p.cross_attn.wk, memory).reshape(b, sk, cfg.n_kv_heads, -1)
-                for p in params.dec_blocks])
-            cache["cross_v"] = torch.stack([
-                linear(p.cross_attn.wv, memory).reshape(b, sk, cfg.n_kv_heads, -1)
-                for p in params.dec_blocks])
-            x = params.embed.embedding[batch["tokens"]].to(memory.dtype)
+            # the cross-attention k/v are projected once; decoding reuses
+            # them.  On a mesh they take the layout the cache's (.., 1, ..)
+            # leaves had (``state_shardings``': the head width over "model")
+            for key, proj in (("cross_k", "wk"), ("cross_v", "wv")):
+                cache[key] = common.layout_of(torch.stack([
+                    common.split_heads(linear(getattr(p.cross_attn, proj), memory),
+                                       cfg.n_kv_heads) for p in params.dec_blocks]), cache[key])
+            tokens = batch["tokens"]
+            x = common.layout_of(
+                common.embed_lookup(params.embed.embedding, tokens).to(memory.dtype), tokens)
             x, cache = _run_decoder_encdec(cfg, params, x, None, cache)
         elif cfg.family == "hybrid":
             x = _embed_tokens(cfg, params, batch)
@@ -702,7 +773,7 @@ class Model:
         else:
             x = _embed_tokens(cfg, params, batch)
             x, cache = _run_xlstm(cfg, params, x, cache, decode=False)
-        return _lm_logits(cfg, params, x[:, -1:])[:, 0], cache
+        return _serving_logits(cfg, params, x[:, -1:]), _stacks_written_back(cache, back)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -711,7 +782,9 @@ class Model:
         """One decode step.  tokens: (B, 1) integer; ``extras`` may carry
         M-RoPE ``positions`` (B, 1, 3).  Returns (logits, cache)."""
         cfg = self.cfg
-        x = params.embed.embedding[tokens].to(common.dtype_of(cfg.dtype))
+        cache, back = _stacks_whole(cache)
+        x = common.layout_of(common.embed_lookup(params.embed.embedding, tokens)
+                             .to(common.dtype_of(cfg.dtype)), tokens)
         b = tokens.shape[0]
         if cfg.family in ("dense", "moe", "vlm"):
             length = torch.full((b, 1), cache["length"], dtype=torch.long, device=x.device)
@@ -727,7 +800,7 @@ class Model:
             x, cache = _run_zamba(cfg, params, x, cache, decode=True)
         else:
             x, cache = _run_xlstm(cfg, params, x, cache, decode=True)
-        return _lm_logits(cfg, params, x)[:, 0], cache
+        return _serving_logits(cfg, params, x), _stacks_written_back(cache, back)
 
 
 def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda") -> Model:

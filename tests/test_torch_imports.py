@@ -14,6 +14,7 @@ SRC_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 PORT_FILES = SRC_FILES + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_dist_ranks.py",
     ROOT / "tools" / "torch_sharded_train.py", ROOT / "tools" / "torch_sharded_limits.py",
+    ROOT / "tools" / "torch_sharded_serve.py",
 ]
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro(\.|\s))",

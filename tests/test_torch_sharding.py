@@ -227,8 +227,10 @@ def stripped(params, spec_tree, mesh) -> dict:
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
 def test_build_cell_equals_jax_cell(mesh, fsdp, specs_not_shardings):
     """qwen2-7b at published widths: every argument of the three kinds is on
-    ``meta`` (nothing allocated), and the placements of parameters, moments,
-    batch, cache and outputs equal the JAX cell's leaf for leaf."""
+    ``meta`` (nothing allocated), the placements of parameters, moments,
+    batch, cache and outputs equal the JAX cell's leaf for leaf, and each
+    kind's step is the reference's (the serving steps run on DTensors in
+    ``test_torch_sharded_serving.py``)."""
     jm, tm = j_mesh(mesh), t_mesh(mesh)
     for kind, shape_name in (("train", "train_4k"), ("prefill", "prefill_32k"),
                              ("decode", "decode_32k")):
@@ -252,16 +254,15 @@ def test_build_cell_equals_jax_cell(mesh, fsdp, specs_not_shardings):
             assert port_placements(cell.in_shardings[2]) == as_placements(
                 j_cell.in_shardings[2], tm)
             assert cell.out_shardings[0] == tsh.placements(tuple(j_cell.out_shardings[0]), tm)
-            with pytest.raises(NotImplementedError, match="item 14d"):
-                cell.step_fn(*cell.arg_shapes)
+            assert cell.step_fn.__name__ == j_cell.step_fn.__name__ == f"{kind}_step"
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_build_cell_of_every_family_is_allocation_free(arch):
-    """Reduced configs of every family: the three kinds build on ``meta``;
-    the training step is built for every family (it runs on DTensors in
-    ``test_torch_sharded_families.py``), the serving steps still refuse
-    (ROADMAP item 14d)."""
+    """Reduced configs of every family: the three kinds build on ``meta``,
+    each with its step: the training step (it runs on DTensors in
+    ``test_torch_sharded_families.py``), the prefill and the decode step
+    (``test_torch_sharded_serving.py``)."""
     tm = t_mesh("2x4")
     cfg = TC.reduce_config(TC.get_config(arch))
     for shape_name in ("train_4k", "prefill_32k", "decode_32k"):
@@ -269,8 +270,4 @@ def test_build_cell_of_every_family_is_allocation_free(arch):
         cell = build_cell(cfg, shape, tm)
         leaves = meta_leaves(cell.arg_shapes)
         assert leaves and all(t.device.type == "meta" for t in leaves)
-        if cell.kind == "train":
-            assert cell.step_fn.__name__ == "train_step"
-        else:
-            with pytest.raises(NotImplementedError, match="item 14d"):
-                cell.step_fn(*cell.arg_shapes)
+        assert cell.step_fn.__name__ == f"{cell.kind}_step"

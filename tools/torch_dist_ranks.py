@@ -386,3 +386,235 @@ def rank_pipeline(rank: int, world: int, spec: dict, shared: dict, *,
         out[n_micro] = res
         del leaves, x, y
     return out
+
+
+# ----------------------------------------------------------------------
+# Serving: the prefill and decode cells
+# ----------------------------------------------------------------------
+
+
+def serve_launches(cfg, prompt_len: int) -> dict:
+    """The kernel launches one prefill of ``cfg`` at ``prompt_len`` tokens
+    calls for on each rank: B4 once for each attention layer that takes the
+    chunked core (above 4096 tokens: the decoder-only families' layers and
+    the hybrid's shared-block invocations), B5 once for each Mamba2 layer;
+    by variant for B4.  A decode step launches neither (its attention reads
+    the cache as stored: ``models.attention.decode_attention``)."""
+    step = step_launches(cfg, prompt_len)
+    return {k: (v // 2 if "bwd" not in k else 0) for k, v in step.items()}
+
+
+def serve_batch(cfg, prompt_len: int, batch: int, seed: int):
+    """Seeded prompts (tokens and the frontends' embeddings)."""
+    out = train_batches(cfg, prompt_len, batch, 1, seed)[0]
+    out.pop("labels")
+    return out
+
+
+def _fill(leaf, gen):
+    """``leaf`` filled in place with N(0, 1/4) drawn from ``gen``, in its own
+    dtype (a card's share of a 32k cache is most of its memory)."""
+    return leaf.normal_(0.0, 0.5, generator=gen)
+
+
+def seeded_cache(cfg, batch: int, max_len: int, length: int, seed: int) -> dict:
+    """A whole decode cache of seeded values at ``length`` (every leaf N(0,
+    1/4)): a long context without its prefill."""
+    from repro_torch.models.transformer import Model
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(v) for k, v in tree.items()}
+        return _fill(tree, gen) if isinstance(tree, torch.Tensor) else length
+    return fill(Model(cfg, device=DEVICE).init_cache(batch, max_len))
+
+
+def mesh_cache(cfg, batch: int, max_len: int, mesh, shardings, *, seed: int | None = None,
+               length: int = 0) -> dict:
+    """The decode cache on ``mesh`` in ``shardings``' layout, each rank
+    making its own shards only (a cache of hundreds of GB exists only
+    across cards): ``init_cache``'s values (each of its leaves holds one
+    value), or with ``seed`` N(0, 1/4) drawn per shard (from ``seed`` and
+    the shard's offset) at ``length``."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.models.transformer import Model
+
+    shapes = Model(cfg, device="meta").init_cache(batch, max_len)
+    values = Model(cfg, device="cpu").init_cache(1, 1)
+
+    def leaf(meta, pl, value):
+        if not isinstance(meta, torch.Tensor):
+            return length
+        shape, offset = compute_local_shape_and_global_offset(meta.shape, mesh, pl)
+        if seed is None:
+            local = torch.full(shape, float(value.flatten()[0]), dtype=meta.dtype, device=DEVICE)
+        else:
+            key = seed * 1_000_003 + sum(o * 7919 ** i for i, o in enumerate(offset))
+            gen = torch.Generator(device=DEVICE).manual_seed(key % (2**63))
+            local = _fill(torch.empty(shape, dtype=meta.dtype, device=DEVICE), gen)
+        return DTensor.from_local(local, mesh, pl, run_check=False, shape=meta.shape,
+                                  stride=meta.stride())
+
+    def walk(s, p, v):
+        if isinstance(s, dict):
+            return {k: walk(s[k], p[k], v[k]) for k in s}
+        return leaf(s, p, v)
+    return walk(shapes, shardings, values)
+
+
+def cache_bytes(cache) -> int:
+    """The bytes of a cache's tensors a rank holds (its shards)."""
+    total = 0
+    for v in cache.values():
+        if isinstance(v, dict):
+            total += cache_bytes(v)
+        elif isinstance(v, torch.Tensor):
+            t = v.to_local() if hasattr(v, "to_local") else v
+            total += t.numel() * t.element_size()
+    return total
+
+
+def serve_run(cfg, params, *, max_len: int, steps: int, batch=None, cache=None,
+              start=None, bsz: int | None = None, mesh=None, forced=None,
+              keep: bool = True) -> dict:
+    """A prefill of ``batch`` into an empty cache (or ``cache``, a cache
+    already filled: a whole one unsharded, one ``mesh_cache`` made on a
+    mesh) and the tokens ``start``, then ``steps`` decode steps, greedy or
+    taking the tokens ``forced``.  On ``mesh``: ``launch.specs.build_cell``'s prefill and
+    decode steps, every argument placed as the cells' ``in_shardings``
+    say; else the model's own.  Each phase timed (host clock after a
+    synchronise), its launches and the decode steps' collectives read; the
+    logits (on the host, with ``keep``) and the tokens of every step."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.transformer import Model
+
+    cuda = DEVICE.startswith("cuda")
+    bsz = bsz or batch["tokens"].shape[0]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if mesh is not None:
+        shape = ShapeConfig("decode_cell", "decode", max_len, bsz)
+        cell = build_cell(cfg, shape, mesh)
+        _, t_shard, c_shard, _ = cell.in_shardings
+        step = cell.step_fn
+
+        def place(t, pl):
+            return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+        def whole(t):
+            return t.full_tensor()
+    else:
+        model = Model(cfg, device=DEVICE)
+        step = model.decode_step
+
+        def place(t, pl):
+            return t
+
+        def whole(t):
+            return t
+        t_shard = None
+    out = {"logits": [], "tokens": [], "decode_seconds": [], "decode_launches": [],
+           "collectives": []}
+    if batch is not None:
+        if mesh is not None:
+            pcell = build_cell(cfg, ShapeConfig("prefill_cell", "prefill", max_len, bsz), mesh)
+            b_shard = pcell.in_shardings[1]
+            batch = {k: place(v, b_shard[k]) for k, v in batch.items()}
+            cache = mesh_cache(cfg, bsz, max_len, mesh, c_shard)
+            prefill = pcell.step_fn
+        else:
+            cache, prefill = model.init_cache(bsz, max_len), model.prefill
+        sync()
+        reset_rank_launches()
+        if LaunchHeads._local is not None:
+            LaunchHeads.reset()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, cache)
+        full = whole(logits)
+        sync()
+        out["prefill_seconds"] = time.perf_counter() - t0
+        out["prefill_launches"] = rank_launches()
+        if LaunchHeads._local is not None:
+            out["prefill_heads"] = {k: sorted(v) for k, v in LaunchHeads.seen().items()}
+        tokens = full.argmax(-1, keepdim=True)
+        if keep:
+            out["logits"].append(full.float().cpu())
+    else:
+        tokens = start
+    out["cache_bytes"] = cache_bytes(cache)
+    for i in range(steps):
+        if forced is not None:
+            tokens = forced[i]
+        out["tokens"].append(tokens.cpu())
+        sync()
+        reset_rank_launches()
+        with CollectiveCount() as coll:
+            t0 = time.perf_counter()
+            logits, cache = step(params, place(tokens, t_shard), cache, {})
+            full = whole(logits)
+            sync()
+            out["decode_seconds"].append(time.perf_counter() - t0)
+        out["decode_launches"].append(rank_launches())
+        out["collectives"].append(coll.summary())
+        if keep:
+            out["logits"].append(full.float().cpu())
+        tokens = full.argmax(-1, keepdim=True)
+    out["length"] = cache["length"]
+    del cache
+    return out
+
+
+def collective_bytes(summary: dict) -> int:
+    """The bytes of a ``CollectiveCount.summary()``, all kinds."""
+    return sum(v["bytes"] for v in summary.values())
+
+
+class LaunchHeads:
+    """The heads each launch of B4 and B5 ran on, per thread (a rank): B4's
+    (query heads, kv heads), B5's heads, as the sets seen since the last
+    reset.  ``install()`` wraps the two kernels' ``autograd.Function``\\ s
+    where ``kernels.ops`` calls them."""
+
+    _local = None
+
+    @classmethod
+    def install(cls) -> None:
+        import threading
+        import types
+
+        from repro_torch.kernels import ops
+
+        if cls._local is not None:
+            return
+        cls._local = threading.local()
+        for name, kind, heads in (("FlashAttentionFn", "flash_attention_kernel",
+                                   lambda a: (a[0].shape[1], a[1].shape[1])),
+                                  ("MambaScanFn", "mamba_chunk_scan_kernel",
+                                   lambda a: (a[0].shape[1],))):
+            orig = getattr(ops, name)
+
+            def apply(*args, _orig=orig, _kind=kind, _heads=heads):
+                cls.seen().setdefault(_kind, set()).add(_heads(args))
+                return _orig.apply(*args)
+
+            setattr(ops, name, types.SimpleNamespace(apply=apply))
+
+    @classmethod
+    def seen(cls) -> dict:
+        if not hasattr(cls._local, "seen"):
+            cls._local.seen = {}
+        return cls._local.seen
+
+    @classmethod
+    def reset(cls) -> None:
+        cls._local.seen = {}
