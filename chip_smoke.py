@@ -151,15 +151,26 @@ one JSON object per line:
                       in ``state_shardings``' layouts: qwen2-7b (4 of 28
                       layers) and zamba2-1.2b (38) in bf16, 2 prompts of
                       4608 tokens into 8192 positions and 8 greedy steps
-                      (zamba2 4),
+                      (zamba2 3),
                       zamba2 at long_500k's shape (a seeded cache of 524 288
-                      positions, 4 steps); every rank's B4 and B5 launches
+                      positions, 3 steps); every rank's B4 and B5 launches
                       and heads a prefill, none in decode; held to the
                       unsharded run on the card (bf16: against the same run
                       in f32, SERVE_SHARDED's f32_slack), and f32 replays of
                       all three at reduced widths within 1e-5, greedy
                       tokens equal; tokens/s, peak memory, collective bytes
                       a rank and decode step.
+   ``dryrun``       — ``launch.dryrun`` in a child process, the fake shards
+                      on the card's device: qwen2-7b ``decode_32k`` on a
+                      fake world of 256 ranks (16 x 16) and zamba2-1.2b
+                      ``prefill_32k`` on 512 (2 x 16 x 16), each rank's
+                      FLOPs, bytes, collective bytes by kind, peak memory
+                      and roofline terms; zamba2's rank traces B4 19 and B5
+                      38 times by shape and launches nothing; then
+                      ``serve_sharded``'s qwen2-7b decode cell on a fake
+                      world of 4, whose collective calls and bytes by kind
+                      must equal what ``serve_sharded`` measured for a
+                      decode step.
 8. ``min_cut``      — the per-phase kernel (B3) against its plain version on
                       single phases of 6-1024 vertices ((s, t) equal, cuts to
                       ``rtol=1e-5``), then ``kernels.ops.mcop_min_cut`` on the
@@ -3313,9 +3324,9 @@ SERVE_SHARDED = {
         "qwen2-7b": {"arch": "qwen2-7b", "layers": 4, "prompt_len": 4608, "batch": 2,
                      "max_len": 8192, "steps": 8, "logit_tol": 5e-2},
         "zamba2-1.2b": {"arch": "zamba2-1.2b", "prompt_len": 4608, "batch": 2,
-                        "max_len": 8192, "steps": 4},
+                        "max_len": 8192, "steps": 3},
         "zamba2-1.2b_long500k": {"arch": "zamba2-1.2b", "batch": 1, "max_len": 524_288,
-                                 "length": 524_280, "steps": 4},
+                                 "length": 524_280, "steps": 3},
         "qwen2-7b_f32": {"arch": "qwen2-7b", "prompt_len": 4608, "batch": 2, "max_len": 8192,
                          "steps": 8, "rtol": 1e-5,
                          "widths": dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
@@ -4051,6 +4062,101 @@ def phase_serve_sharded() -> dict:
             "main_path_launches": total, "seconds": seconds}
 
 
+# phase dryrun: launch.dryrun on fake worlds, in a child process, with the
+# fake shards on the card's device: (arch, shape, two pods) cells, and
+# SERVE_SHARDED's qwen2-7b decode cell on a fake world of its mesh's 4 ranks
+DRYRUN = {"cells": (("qwen2-7b", "decode_32k", False), ("zamba2-1.2b", "prefill_32k", True)),
+          "serve_run": "qwen2-7b", "timeout": 600}
+
+
+def _dryrun_child(out_path: str) -> None:
+    """A child process: the dry run of DRYRUN's cells and of SERVE_SHARDED's
+    decode cell (each makes and destroys its own fake world); the results
+    as JSON in ``out_path``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    out = {f"{arch}/{shape}": dryrun.run_cell(arch, shape, multi_pod=mp, device=DEVICE)
+           for arch, shape, mp in DRYRUN["cells"]}
+    run = SERVE_SHARDED["runs"][DRYRUN["serve_run"]]
+    out["serve_sharded"] = dryrun.run_cell(
+        run["arch"], "decode_32k", multi_pod=False, device=DEVICE,
+        mesh_shape=SERVE_SHARDED["mesh"], cfg=serve_config(run),
+        shape=ShapeConfig("decode_cell", "decode", run["max_len"], run["batch"]))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_dryrun(served_sharded: dict) -> dict:
+    """``launch.dryrun`` on fake worlds with fake CUDA shards, in a child
+    process that leaves no process group: qwen2-7b ``decode_32k`` on the
+    256-rank mesh; zamba2-1.2b ``prefill_32k`` on the 512-rank mesh, whose
+    rank traces B4 and B5 as many times as a prefill launches them
+    (``ranks.serve_launches``) and launches none; and SERVE_SHARDED's
+    qwen2-7b decode cell on a fake world of 4, whose collective calls and
+    bytes by kind must be ``==`` those phase ``serve_sharded`` measured for
+    rank 0's last decode step (the same counter)."""
+    import tempfile
+
+    from repro_torch.configs import get_config, get_shape
+
+    t0 = time.perf_counter()
+    out_path = os.path.join(tempfile.mkdtemp(prefix="smoke_dryrun_"), "dryrun.json")
+    code = f"import chip_smoke as c; c._dryrun_child({out_path!r})"
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=ROOT)
+    try:
+        proc.wait(timeout=DRYRUN["timeout"])
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        raise AssertionError(f"dryrun: the child process ended with {proc.returncode}")
+    with open(out_path) as f:
+        res = json.load(f)
+    cells = []
+    for key, r in res.items():
+        if any(r["launches"].values()):
+            raise AssertionError(f"dryrun {key}: the trace launched {r['launches']}")
+        if r["memory"]["peak_bytes"] > 80e9:
+            raise AssertionError(f"dryrun {key}: a rank's peak {r['memory']} passes 80 GB")
+        cells.append({
+            "cell": key, "mesh": r["mesh"], "chips": r["chips"],
+            "memory_gb": {k: v / 1e9 for k, v in r["memory"].items()},
+            "collective_gb": {k: v / 1e9 for k, v in r["collectives"].items()
+                              if k != "num_ops"},
+            "collective_calls": r["collective_calls"],
+            "kernel_calls": {k: v["calls"] for k, v in r["kernels"].items()},
+            "kernel_shapes": {k: v["shapes"] for k, v in r["kernels"].items() if v["calls"]},
+            "flops_per_rank": r["flops_per_device"], "bytes_per_rank": r["bytes_per_device"],
+            "roofline": r["roofline"], "useful_flops_ratio": r["useful_flops_ratio"],
+            "trace_seconds": r["lower_s"] + r["compile_s"]})
+    traced = {}
+    for arch, shape, _ in DRYRUN["cells"]:   # a prefill traces what it would launch
+        calls = {k: v["calls"] for k, v in res[f"{arch}/{shape}"]["kernels"].items()}
+        traced[f"{arch}/{shape}"] = calls
+        if get_shape(shape).kind == "prefill":
+            want = ranks.serve_launches(get_config(arch), get_shape(shape).seq_len)
+            if calls != {k: want[k] for k in calls}:
+                raise AssertionError(f"dryrun {arch} {shape}: traced {calls}, a prefill "
+                                     f"launches {want}")
+    run = next(r for r in served_sharded["runs"] if r["run"] == DRYRUN["serve_run"])
+    measured = run["collectives_per_decode_step"]
+    dry = res["serve_sharded"]
+    dry_kinds = {k: {"calls": dry["collective_calls"][k], "bytes": dry["collectives"][k]}
+                 for k in dry["collective_calls"]}
+    if dry_kinds != measured:
+        raise AssertionError(f"dryrun: serve_sharded's decode cell counts {dry_kinds} on a "
+                             f"fake world, the threads measured {measured}")
+    return {"phase": "dryrun", "device": DEVICE, "cells": cells,
+            "traced_kernel_calls": traced,
+            "serve_sharded_decode": {"dry_run": dry_kinds, "measured": measured},
+            "seconds": time.perf_counter() - t0}
+
+
 WORLD_SETUP = {"train_sharded": setup_train_sharded, "pipeline": ranks.setup_pipeline,
                "serve_sharded": setup_serve_sharded}
 WORLD_RANK = {"train_sharded": rank_train_sharded, "pipeline": ranks.rank_pipeline,
@@ -4176,6 +4282,7 @@ def main() -> int:
     for name, count in served_sharded["main_path_launches"].items():
         if count <= 0:
             raise AssertionError(f"serve_sharded never launched {name}")
+    emit(phase_dryrun(served_sharded))  # traces, launches nothing, in a child process
 
     t0 = time.perf_counter()
     min_cut = phase_min_cut(rng)  # resets and reads the counters around its path

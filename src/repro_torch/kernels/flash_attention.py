@@ -11,7 +11,9 @@ cannot take MLA's heads at all).  Each tensor may be any view whose last dim is
 contiguous (the kernel takes the batch, head and row strides), so the
 model's ``(B, S, H, hd)`` tensors go in as ``transpose(1, 2)`` views.  A CUDA
 tensor launches the kernel or raises ``kernels.build.KernelError``; a CPU
-tensor runs :func:`~repro_torch.kernels.ref.flash_attention_plain`.
+tensor runs :func:`~repro_torch.kernels.ref.flash_attention_plain`; a fake
+CUDA tensor (the dry run's) takes the kernel by shape
+(``kernels.traced``) and launches nothing.
 
 The kernel has two variants behind one C entry point, chosen by
 :func:`flash_variant` from the dtype and head widths alone: bfloat16 at
@@ -46,6 +48,7 @@ import math
 import torch
 
 from repro_torch.kernels.build import KernelError
+from repro_torch.kernels import traced
 from repro_torch.kernels.mcop_phase import _require
 from repro_torch.kernels.ref import (
     attention_output_like, flash_attention_bwd_plain, flash_attention_lse_plain,
@@ -178,6 +181,9 @@ def flash_attention_kernel(
     if (hd, hd_v) not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention_kernel takes (hd, hd_v) in {FLASH_HEAD_DIMS}, "
                          f"got {(hd, hd_v)}")
+    if traced.is_fake(q):   # the dry run: the kernel by shape, nothing launched
+        out, lse = traced.flash_attention(q, k, v, causal, window, scale)
+        return (out, lse) if return_lse else out
     variant = flash_variant(q.dtype, hd, hd_v)
     out = attention_output_like(q, hd_v)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) if return_lse else None
@@ -270,6 +276,8 @@ def flash_attention_bwd_kernel(
     if (hd, hd_v) not in FLASH_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd_kernel takes (hd, hd_v) in "
                          f"{FLASH_HEAD_DIMS}, got {(hd, hd_v)}")
+    if traced.is_fake(q):   # the dry run: the kernel by shape, nothing launched
+        return traced.flash_attention_bwd(q, k, v, out, dout, lse, causal, window, scale)
     variant = flash_bwd_variant(q.dtype, hd, hd_v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b * h == 0:

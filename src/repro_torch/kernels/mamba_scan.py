@@ -12,7 +12,9 @@ the wrapper launches the four passes and counts once in ``LAUNCHES``.
 their strides; the last dim of ``x``, ``Bm`` and ``Cm`` contiguous), so the
 model's step-major ``(B, S, H, P)`` tensors go in without head-major copies.
 A CUDA tensor launches the kernel or raises ``kernels.build.KernelError``;
-a CPU tensor runs :func:`~repro_torch.kernels.ref.mamba_chunk_scan_plain`.
+a CPU tensor runs :func:`~repro_torch.kernels.ref.mamba_chunk_scan_plain`;
+a fake CUDA tensor (the dry run's) takes the kernel by shape
+(``kernels.traced``) and launches nothing.
 
 :func:`mamba_chunk_scan_bwd_kernel` is the backward (``csrc/mamba_scan_bwd.cu``,
 no TPU counterpart: the JAX package autodiffs its ``lax.scan`` over
@@ -37,6 +39,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import KernelError
+from repro_torch.kernels import traced
 from repro_torch.kernels.mcop_phase import _require
 from repro_torch.kernels.ref import mamba_chunk_scan_bwd_plain, mamba_chunk_scan_plain
 
@@ -124,6 +127,8 @@ def _scan(x, dt, ld, bm, cm, h0):
             f"mamba_chunk_scan_kernel takes Q <= {MAMBA_MAX_CHUNK} and P, N <= "
             f"{MAMBA_MAX_WIDTH}, got Q={q}, P={p}, N={n}"
         )
+    if traced.is_fake(x):   # the dry run: the kernel by shape, nothing launched
+        return traced.mamba_scan(x, dt, ld, bm, cm, h0)
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
     if b * h * nc == 0:
@@ -206,6 +211,8 @@ def mamba_chunk_scan_bwd_kernel(
             f"mamba_chunk_scan_bwd_kernel takes Q <= {MAMBA_MAX_CHUNK} and P, N <= "
             f"{MAMBA_MAX_WIDTH}, got Q={q}, P={p}, N={n}"
         )
+    if traced.is_fake(x):   # the dry run: the kernel by shape, nothing launched
+        return traced.mamba_scan_bwd(x, dt, ld, bm, cm, states, dy, dh)
     states = states.contiguous()
     outs = (torch.empty((b, h, nc, q, p), dtype=f32, device=dev),
             torch.empty((b, h, nc, q), dtype=f32, device=dev),

@@ -16,7 +16,8 @@ autograd of the plain version.
 
 A DTensor q/k/v (a model whose parameters ``runtime.sharding`` placed on a
 mesh) runs ``flash_attention`` on each rank's own shard: batch over the
-data axes, heads over ``"model"`` (``_flash_attention_sharded``); so does
+data axes, heads over ``"model"`` (``sharded_attention``, which the naive
+core of ``models.attention`` takes too); so does
 a DTensor scan (``_mamba_chunk_scan_sharded``), from a state in any
 layout.  Their callers: the sharded training step, and the serving cells'
 prefill (``launch.specs.build_cell``), whose k/v and final state are then
@@ -29,7 +30,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention_kernel
@@ -37,8 +37,10 @@ from repro_torch.kernels.mamba_scan import MambaScanFn, mamba_chunk_scan_kernel
 from repro_torch.kernels.mcop_phase import (
     PHASE_MAX_N, LoopState, mcop_phase_step, require_device,
 )
+from repro_torch.models.common import local_shape_offset
 
-__all__ = ["flash_attention", "gqa_local_kv", "mamba_chunk_scan", "mcop_min_cut"]
+__all__ = ["flash_attention", "gqa_local_kv", "mamba_chunk_scan", "mcop_min_cut",
+           "sharded_attention"]
 
 
 def flash_attention(
@@ -53,9 +55,11 @@ def flash_attention(
     """Returns (B, Sq, H, hd_v) in q's dtype (contiguous when q is).
 
     DTensors run the same call on each rank's local shard
-    (:func:`_flash_attention_sharded`)."""
+    (:func:`sharded_attention`)."""
     if isinstance(q, DTensor):
-        return _flash_attention_sharded(q, k, v, causal=causal, window=window, scale=scale)
+        def core(ql, kl, vl):
+            return flash_attention(ql, kl, vl, causal=causal, window=window, scale=scale)
+        return sharded_attention(core, q, k, v)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cuda":
         out = FlashAttentionFn.apply(qh, kh, vh, causal, window, scale)
@@ -64,25 +68,28 @@ def flash_attention(
     return out.transpose(1, 2)
 
 
-def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, *, causal: bool,
-                             window: int | None, scale: float | None) -> DTensor:
-    """:func:`flash_attention` of DTensors, on local shards.
+def sharded_attention(core, q: DTensor, k: DTensor, v: DTensor) -> DTensor:
+    """Attention of DTensors (model layout, ``(B, S, H, hd)``), on local
+    shards: ``core(ql, kl, vl)`` on each rank's shard of whole sequences
+    and whole heads.  ``core`` is :func:`flash_attention` (B4) or
+    ``models.attention.naive_attention``, with their options.
 
     Attention is independent across the batch and across heads, so a shard
     of whole sequences and whole heads is a smaller call of the same
     function.  q's layout decides: each mesh dimension keeps ``Shard(0)``
     (batch) or ``Shard(2)`` (heads) or is ``Replicate()``; a ``Partial``
     is reduced first.  A sharded sequence or head width is refused: the
-    scores of one row would span ranks.  Callers: training, and a
-    prefill above 4096 tokens into an empty cache (the empty-cache route
-    of ``models.attention``), whose fresh k/v it attends before they are
-    written into the sequence-sharded cache.
+    scores of one row would span ranks.  Callers: training (B4 above 4096
+    tokens, the naive core at or below), and a prefill above 4096 tokens
+    into an empty cache (the empty-cache route of ``models.attention``),
+    whose fresh k/v it attends before they are written into the
+    sequence-sharded cache.
 
     When the head-sharding axes divide both the query and the kv heads,
     k and v are brought to q's layout: query heads shard in contiguous
     blocks and so do the kv heads, so GQA's head ``h`` -> kv head ``h //
     rep`` holds on each shard by local index.  Otherwise
-    (:func:`_flash_attention_gqa_uneven`) q's heads are chunked over those
+    (:func:`_attention_gqa_uneven`) q's heads are chunked over those
     axes and over ``"model"`` where q is whole (unevenly, as ``torch.chunk``
     splits them), k and v are replicated over them, and each rank takes the
     kv heads its query heads need by global index."""
@@ -94,7 +101,7 @@ def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, *, causal: bool
             p = Replicate()
         elif isinstance(p, Shard) and p.dim not in (0, 2):
             raise ValueError(
-                f"flash_attention: q's dimension {p.dim} (the sequence or head width) is "
+                f"attention: q's dimension {p.dim} (the sequence or head width) is "
                 f"sharded over {mesh.mesh_dim_names[i]!r}; gather it first")
         elif isinstance(p, Shard) and p.dim == 2:
             split *= mesh.size(i)
@@ -103,21 +110,18 @@ def _flash_attention_sharded(q: DTensor, k: DTensor, v: DTensor, *, causal: bool
     whole_over_model = ("model" in names and mesh.size(names.index("model")) > 1
                         and layout[names.index("model")] == Replicate())
     if heads % split or kv_heads % split or whole_over_model:
-        return _flash_attention_gqa_uneven(q, k, v, layout, causal=causal, window=window,
-                                           scale=scale)
+        return _attention_gqa_uneven(core, q, k, v, layout)
     layout = tuple(layout)
     q, k, v = (t.redistribute(mesh, layout) for t in (q, k, v))
 
     def local(ql, kl, vl):
-        return (flash_attention(ql, kl, vl, causal=causal, window=window, scale=scale),)
+        return (_dense_core(core, ql, kl, vl),)
 
     return local_map(local, out_placements=(layout,), in_placements=(layout, layout, layout),
                      device_mesh=mesh)(q, k, v)[0]
 
 
-def _flash_attention_gqa_uneven(q: DTensor, k: DTensor, v: DTensor, layout: list, *,
-                                causal: bool, window: int | None,
-                                scale: float | None) -> DTensor:
+def _attention_gqa_uneven(core, q: DTensor, k: DTensor, v: DTensor, layout: list) -> DTensor:
     """GQA whose heads the head-sharding axes do not split into whole groups
     (qwen2-7b's 28 query / 4 kv heads over ``model = 16``).
 
@@ -141,11 +145,11 @@ def _flash_attention_gqa_uneven(q: DTensor, k: DTensor, v: DTensor, layout: list
     kv_grad = tuple(Partial() if p == Shard(2) else p for p in q_pl)
     heads, kv_heads = q.shape[2], k.shape[2]
     if heads % kv_heads:
-        raise ValueError(f"flash_attention: {heads} query heads over {kv_heads} kv heads")
+        raise ValueError(f"attention: {heads} query heads over {kv_heads} kv heads")
     rep = heads // kv_heads
     q = q.redistribute(mesh, q_pl)
     k, v = k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl)
-    local_shape, offset = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)
+    local_shape, offset = local_shape_offset(q.shape, mesh, q_pl)
     h0, nh = offset[2], local_shape[2]
     ql = q.to_local()
     kl, vl = k.to_local(grad_placements=kv_grad), v.to_local(grad_placements=kv_grad)
@@ -155,11 +159,30 @@ def _flash_attention_gqa_uneven(q: DTensor, k: DTensor, v: DTensor, layout: list
         out = zero.to(ql.dtype).expand(b, sq, 0, vl.shape[-1])
     else:
         kl, vl = gqa_local_kv(kl, vl, h0, nh, rep)
-        out = flash_attention(ql, kl, vl, causal=causal, window=window, scale=scale)
+        out = _dense_core(core, ql, kl, vl)
     shape = (q.shape[0], q.shape[1], heads, v.shape[-1])
     stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(out, mesh, q_pl, run_check=False, shape=torch.Size(shape),
                               stride=stride)
+
+
+class _DenseGrad(torch.autograd.Function):
+    """``t`` itself, its gradient made contiguous."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _dense_core(core, ql, kl, vl):
+    """``core`` on local shards, its output and its inputs' gradients
+    contiguous: DTensor views a shard as it lies, and a view of a
+    transposed shard (the naive core's einsums give them) fails."""
+    return core(*(_DenseGrad.apply(t) for t in (ql, kl, vl))).contiguous()
 
 
 def gqa_local_kv(k: torch.Tensor, v: torch.Tensor, h0: int, nh: int,

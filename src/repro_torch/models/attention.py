@@ -3,7 +3,8 @@ sliding-window ring caches), DeepSeek-V2 MLA (multi-head latent attention),
 their decode caches, and three attention cores.
 
 * :func:`naive_attention` materialises the ``(Sq, Sk)`` scores: short
-  prompts without a cache (plain tensor code, as in the JAX package).
+  prompts without a cache (plain tensor code, as in the JAX package; on a
+  mesh, on each rank's shard of whole heads, as B4).
 * :func:`chunked_attention` is the long-prefill core: the flash-attention
   kernel through ``kernels.ops.flash_attention`` (on a CPU tensor, its
   plain version).  It takes value heads narrower than the query/key heads,
@@ -126,7 +127,16 @@ def naive_attention(
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Reference attention — materialises the (Sq, Sk) score matrix."""
+    """Reference attention — materialises the (Sq, Sk) score matrix.
+
+    DTensors run it on each rank's shard of whole sequences and whole heads
+    (``kernels.ops.sharded_attention``, B4's layouts), never through
+    DTensor's rules for its einsums."""
+    if isinstance(q, DTensor):
+        def core(ql, kl, vl):
+            return naive_attention(ql, kl, vl, mask_kind=mask_kind, q_pos=q_pos, k_pos=k_pos,
+                                   kv_valid_len=kv_valid_len, window=window, scale=scale)
+        return ops.sharded_attention(core, q, k, v)
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     rep = h // k.shape[2]

@@ -27,7 +27,6 @@ import torch.distributed as dist
 import torch.utils.checkpoint
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 __all__ = [
@@ -56,6 +55,7 @@ __all__ = [
     "cache_write_ring",
     "cache_set",
     "local_range",
+    "local_shape_offset",
     "SumAcross",
     "GradIf",
 ]
@@ -191,7 +191,7 @@ def _embed_sharded(table: DTensor, tokens) -> DTensor:
     k_pl = tuple(Replicate() if tp == Shard(0) else p
                  for tp, p in zip(t_pl, tokens.placements))
     table, tokens = table.redistribute(mesh, t_pl), tokens.redistribute(mesh, k_pl)
-    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, t_pl)
+    _, offset = local_shape_offset(table.shape, mesh, t_pl)
     # per mesh dimension: the vocabulary's rows' owners sum the output; the
     # batch's shards sum the table's gradient
     out_pl = tuple(Partial() if tp == Shard(0) else kp for tp, kp in zip(t_pl, k_pl))
@@ -259,10 +259,29 @@ def _slab(leaf: DTensor, values: torch.Tensor, dim: int) -> torch.Tensor:
     return values.to(leaf.dtype).redistribute(mesh, pl).to_local()
 
 
+def local_shape_offset(shape, mesh, placements) -> tuple[list[int], list[int]]:
+    """The calling rank's local shard of a tensor of global ``shape`` in
+    ``placements`` on ``mesh``: its shape and the global index of its first
+    element along each dimension.  Host integers from the rank's mesh
+    coordinate, with DTensor's split (``torch.chunk``'s: ceil-sized pieces,
+    the last ones short or empty; a dimension sharded over several mesh
+    dimensions is split by each in the mesh's order), so the same under
+    ``FakeTensorMode`` as on real tensors."""
+    local, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            d, n = p.dim % len(local), mesh.size(i)
+            full = -(-local[d] // n)
+            start = min(coord[i] * full, local[d])
+            offset[d] += start
+            local[d] = min(full, local[d] - start)
+    return local, offset
+
+
 def local_range(leaf: DTensor, dim: int) -> tuple[int, int]:
     """(first global index, count) of ``leaf``'s local shard along ``dim``."""
-    shape, offset = compute_local_shape_and_global_offset(leaf.shape, leaf.device_mesh,
-                                                          leaf.placements)
+    shape, offset = local_shape_offset(leaf.shape, leaf.device_mesh, leaf.placements)
     return offset[dim], shape[dim]
 
 
@@ -292,16 +311,21 @@ def cache_write_ring(leaf: torch.Tensor, values: torch.Tensor, start: int, *,
     w, n = leaf.shape[dim], values.shape[dim]
     if n > w:   # only the last w tokens survive the write
         values, start, n = values.narrow(dim, n - w, w), start + n - w, w
-    slots = (start + torch.arange(n, device=values.device)) % w
     if not isinstance(leaf, DTensor):
+        slots = (start + torch.arange(n, device=values.device)) % w
         leaf[(slice(None),) * dim + (slots,)] = values.to(leaf.dtype)
         return
     vals = _slab(leaf, values, dim)
     lo, size = local_range(leaf, dim)
-    slots = slots.to(vals.device)
-    here = torch.nonzero((slots >= lo) & (slots < lo + size))[:, 0]
-    if here.numel():
-        leaf.to_local().index_copy_(dim, slots[here] - lo, vals.index_select(dim, here))
+    local = leaf.to_local()
+    # the slots run from start % w up to the ring's end, then from 0: two
+    # runs of positions (n <= w, so no slot is written twice); each rank
+    # copies the parts of them that fall in its slots lo .. lo + size - 1
+    first = min(n, w - start % w)
+    for j0, s0, count in ((0, start % w, first), (first, 0, n - first)):
+        a, b = max(s0, lo), min(s0 + count, lo + size)
+        if a < b:
+            local.narrow(dim, a - lo, b - a).copy_(vals.narrow(dim, j0 + a - s0, b - a))
 
 
 def cache_set(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -341,12 +365,41 @@ def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
 
 
+class _WholeGradOver(torch.autograd.Function):
+    """``t`` itself; a DTensor gradient split along ``dim`` is gathered
+    along it first: ``_WholeGradOver.apply(t, dim)``."""
+
+    @staticmethod
+    def forward(ctx, t, dim: int):
+        ctx.dim = dim
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and Shard(ctx.dim) in g.placements:
+            g = g.redistribute(g.device_mesh, tuple(Replicate() if p == Shard(ctx.dim) else p
+                                                    for p in g.placements))
+        return g, None
+
+
 def merge_heads(t: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) -> (B, S, H·hd); a DTensor whose heads are split
     unevenly over ranks is gathered over them first (see
-    :func:`split_heads`)."""
-    t = _whole_over_uneven(t, 2, t.shape[2])
-    return t.reshape(*t.shape[:2], t.shape[2] * t.shape[3])
+    :func:`split_heads`), and so is one whose head width is split (the
+    cross cache's layout, read by ``attention.decode_attention``): a merged
+    axis split inside every head is a strided shard that DTensor's
+    products refuse.  Where some mesh dimension does not divide the heads,
+    the merged gradient is gathered along H·hd before it is split back
+    into heads (DTensor cannot unflatten an uneven split: xLSTM's 4 heads
+    over ``model = 16``)."""
+    heads = t.shape[2]
+    t = _whole_over_uneven(t, 2, heads)
+    t = _whole_over_uneven(t, 3, 1)
+    out = t.reshape(*t.shape[:2], heads * t.shape[3])
+    if isinstance(out, DTensor) and any(heads % out.device_mesh.size(i)
+                                        for i in range(out.device_mesh.ndim)):
+        out = _WholeGradOver.apply(out, 2)
+    return out
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -478,7 +531,7 @@ def _cross_entropy_sharded(logits: DTensor, labels, *, ignore_id: int) -> DTenso
     layout = tuple(p if isinstance(p, Shard) else Replicate() for p in logits.placements)
     rows = tuple(p if isinstance(p, Shard) and p.dim < vd else Replicate() for p in layout)
     vocab_groups = [mesh.get_group(i) for i, p in enumerate(layout) if p == Shard(vd)]
-    _, offset = compute_local_shape_and_global_offset(logits.shape, mesh, layout)
+    _, offset = local_shape_offset(logits.shape, mesh, layout)
     if not isinstance(labels, DTensor):
         labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
     logits = logits.redistribute(mesh, layout)

@@ -174,14 +174,23 @@ def _moe_local(cfg: ModelConfig, experts: tuple[int, int], lead: bool, mesh,
     sorted_token = order // k
     seg_start = torch.searchsorted(sorted_expert, torch.arange(e, device=x.device))
     pos = torch.arange(t * k, device=x.device) - seg_start[sorted_expert]
-    offsets = _rank_offsets(torch.bincount(flat_expert, minlength=e), mesh, prefix_dims)
+    # each expert's pairs here (a bincount whose shape does not depend on
+    # the ids, so that the step also runs on fake tensors)
+    counts = (flat_expert[:, None] == torch.arange(e, device=x.device)).sum(0)
+    offsets = _rank_offsets(counts, mesh, prefix_dims)
     keep = offsets[sorted_expert] + pos < cap                  # the whole batch's drops
     mine = keep & (sorted_expert >= e0) & (sorted_expert < e1)
     slot = (sorted_expert - e0).clamp(0, e1 - e0 - 1) * cap + pos.clamp(max=cap - 1)
 
-    buf = torch.zeros(((e1 - e0) * cap, d), dtype=x.dtype, device=x.device)
-    buf[slot[mine]] = xf[sorted_token[mine]]        # each kept pair owns its slot
-    buf = buf.reshape(e1 - e0, cap, d)
+    # each kept pair owns its slot: every slot's token (the pairs not kept
+    # here write a spare slot), gathered where a pair fills the slot
+    rows = (e1 - e0) * cap
+    at = torch.where(mine, slot, rows)
+    src = torch.zeros(rows + 1, dtype=torch.int64, device=x.device)
+    src[at] = sorted_token
+    filled = torch.zeros(rows + 1, dtype=torch.bool, device=x.device)
+    filled[at] = mine
+    buf = torch.where(filled[:rows, None], xf[src[:rows]], 0).reshape(e1 - e0, cap, d)
     h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
     out_buf = torch.bmm(h, w_down).reshape((e1 - e0) * cap, d)
 

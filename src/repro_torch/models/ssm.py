@@ -27,7 +27,6 @@ import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
@@ -360,7 +359,7 @@ def _mamba2_step_sharded(cfg: ModelConfig, p: Mamba2, x: DTensor,
     h_pl = tuple(Shard(0) if xp == Shard(0) else Replicate() if hp == Shard(0) else hp
                  for xp, hp in zip(x_pl, state.h.placements))
     h_in = state.h.redistribute(mesh, h_pl)
-    shape, offset = compute_local_shape_and_global_offset(state.h.shape, mesh, h_pl)
+    shape, offset = common.local_shape_offset(state.h.shape, mesh, h_pl)
     (h0, h1), (p0, p1), (n0, n1) = ((offset[d], offset[d] + shape[d]) for d in (1, 2, 3))
     weights = tuple(t.redistribute(mesh, whole) for t in
                     (p.conv_w, p.conv_b, p.dt_bias, p.a_log, p.d_skip, p.norm.scale))

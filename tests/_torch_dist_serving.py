@@ -11,8 +11,9 @@ cells' ``in_shardings`` say: a case with a ``"batch"`` (the prompt) runs
 the prefill cell's step into its ``"cache"`` (whole tensors and its
 ``length``) or an empty one, one with a ``"cache"`` alone starts from that
 cache; then ``steps`` greedy
-steps of the decode cell (with ``count_comms``, each under a communication
-counter: a dispatch mode slows every op).  Rank 0
+steps of the decode cell (with ``count_comms``, each step under the
+collective counter of ``repro_torch.obs.collectives``, the dry run's: a
+dispatch mode slows every op).  Rank 0
 writes each result (the logits and greedy tokens of every step, every cache
 leaf as a full tensor after the prefill and after the last step, the
 leaves' placements against the cells' ``out_shardings``, the collectives
@@ -54,32 +55,6 @@ def flat(tree, prefix=""):
 
 def full(t):
     return t.full_tensor().detach().clone() if hasattr(t, "full_tensor") else t
-
-
-def comm_bytes_mode():
-    """A ``CommDebugMode`` that also sums the bytes each collective is
-    handed (its first tensor argument: an all-reduce's or a reduce-scatter's
-    whole input, an all-gather's shard)."""
-    from torch.distributed.tensor.debug import CommDebugMode
-    from torch.distributed.tensor.debug._comm_mode import c10d_collective_ops
-    from torch.utils._pytree import tree_leaves
-
-    class CommBytes(CommDebugMode):
-        def __init__(self):
-            super().__init__()
-            self.bytes = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            packet = getattr(func, "_overloadpacket", None)
-            if out is not NotImplemented and (packet in self.comm_registry
-                                              or packet in c10d_collective_ops):
-                first = next((t for t in tree_leaves(args) if isinstance(t, torch.Tensor)), None)
-                if first is not None:
-                    self.bytes += first.numel() * first.element_size()
-            return out
-
-    return CommBytes()
 
 
 def place_tree(tree, shardings, mesh):
@@ -147,15 +122,15 @@ def run_case(mesh, case: dict) -> dict:
         tok = place_tree(tokens, t_shard, mesh)
         extras = place_tree(case["extras"][step], e_shard, mesh)
         if case.get("count_comms"):
-            with comm_bytes_mode() as comm:
+            from repro_torch.obs.collectives import CollectiveCount
+
+            with CollectiveCount() as comm:
                 logits, cache = decode.step_fn(params, tok, cache, extras)
-                whole = full(logits)
-            out["collectives"].append({"counts": {str(k): v for k, v in
-                                                  comm.get_comm_counts().items()},
-                                       "bytes": comm.bytes})
+            out["collectives"].append({"by_kind": comm.summary(),
+                                       "bytes": sum(comm.bytes.values())})
         else:
             logits, cache = decode.step_fn(params, tok, cache, extras)
-            whole = full(logits)
+        whole = full(logits)
         out["layout_ok"].append(same_layout(cache, decode.out_shardings[1])
                                 and tuple(logits.placements) == decode.out_shardings[0])
         out["logits"].append(whole)

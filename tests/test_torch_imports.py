@@ -43,7 +43,7 @@ def test_port_has_the_expected_modules():
         "configs/qwen2_vl_72b.py", "configs/seamless_m4t_large_v2.py", "configs/xlstm_1p3b.py",
         "train/optimizer.py", "train/trainer.py", "data/pipeline.py", "checkpoint/store.py",
         "runtime/compression.py", "launch/train.py", "runtime/pipeline.py",
-        "launch/specs.py",
+        "launch/specs.py", "launch/dryrun.py", "kernels/traced.py", "obs/collectives.py",
     ):
         assert expected in names
 
@@ -87,7 +87,7 @@ import repro_torch.serving, repro_torch.launch.serve, repro_torch.profilers
 import repro_torch.core.placement, repro_torch.launch.serve_broker
 import repro_torch.core.mcop_shard, repro_torch.launch.mesh, repro_torch.runtime
 import repro_torch.train, repro_torch.data, repro_torch.checkpoint, repro_torch.launch.train
-import repro_torch.runtime.pipeline, repro_torch.launch.specs
+import repro_torch.runtime.pipeline, repro_torch.launch.specs, repro_torch.launch.dryrun
 from repro_torch.kernels import build
 def refuse(*a, **k):
     raise AssertionError("the build was reached on the CPU")
@@ -158,7 +158,7 @@ ENTRIES = ["mcop_batch", "solve_envs", "mcop", "price_summary",
            "min_cut", "serve_broker_main", "serve_broker_reference",
            "solver_mesh", "elastic_manager", "sharded_solve_envs", "model_init_moe",
            "engine_extras", "serve_main_encdec", "train_main", "train_dataset",
-           "local_mesh", "production_mesh"]
+           "local_mesh", "production_mesh", "dryrun_cell"]
 
 _NO_GPU_CODE = """
 import json
@@ -199,6 +199,7 @@ from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.models.transformer import Model
 from repro_torch.profilers import stage_specs
 from repro_torch.serving import ServingConfig, ServingEngine
+from repro_torch.launch.dryrun import run_cell as dryrun_cell
 
 zamba = reduce_config(get_config("zamba2-1.2b"))
 vlm = reduce_config(get_config("qwen2-vl-72b"))
@@ -228,6 +229,8 @@ runs = {
     # the training meshes: no GPU, and no process group either
     "local_mesh": lambda: make_local_mesh(),
     "production_mesh": lambda: make_production_mesh(multi_pod=True),
+    # the dry run's fake shards on the default device (its fake world is its own)
+    "dryrun_cell": lambda: dryrun_cell("qwen2-7b", "decode_32k", multi_pod=False),
     "elastic_manager": lambda: ElasticMeshManager(
         stage_specs(zamba, SHAPES["decode_32k"]), TPUV5E_TIER, TPUV5E_TIER, backend="cuda"),
     # a fleet of four shards on the default device

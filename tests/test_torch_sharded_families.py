@@ -16,19 +16,25 @@ say, and is held to
   of the f32 sums alone (the port's unsharded step and ``repro``'s differ
   by 8.2e-6 in its norm, 211.7393 against 211.7376, and by up to 2.4e-5 in
   a leaf's gradient; the sharded step reads 211.7368, 4e-6 from
-  ``repro``'s);
+  ``repro``'s; at 2 heads over 4 model ranks the sharded step's reads
+  1.3e-5 from the unsharded one's);
 * ``repro``'s single-device step within 1e-4 (loss, gradient norm, the
   loss at the updated parameters) and each leaf's update within 1e-2,
   where the reference runs: not above 4096 tokens, where the reference's
   chunked MLA raises and its chunked attention core runs slowly on the CPU.
 
-The cases: GQA whose heads the model axis does not split into whole
+The cases: the hybrid at a batch of 2, the size of the data axis, whose 4
+heads "model" splits evenly (naive attention at 16 tokens on each rank's
+heads: DTensor's own rules for its einsums failed there, ROADMAP Queue
+C); GQA whose heads the model axis does not split into whole
 groups (4 query / 2 kv heads, and 6 / 2 in one layer at 4160 tokens, where B4's
 DTensor route chunks the query heads 2, 2, 2, 0 over the four model ranks);
 the hybrid (Mamba2 and the shared attention block); MoE with MLA
 (deepseek-v2, also at 4160 tokens: B4 at MLA's heads) and with GQA
 (llama4-scout) in both ``expert_mode``\\ s; the VLM with M-RoPE and patch
-embeddings; the encoder-decoder; xLSTM; and qwen3 (qk-norm) and granite
+embeddings; the encoder-decoder; xLSTM, also at 2 heads over the 4 model
+ranks (each rank runs both heads, and the merged heads' gradient is
+gathered before it is split back into heads); and qwen3 (qk-norm) and granite
 (one kv head).  One more case runs an MoE layer alone at a capacity that
 the first data rank's tokens fill: the second rank's pairs to that expert
 are dropped by the whole batch's capacity though its own would keep them,
@@ -63,6 +69,7 @@ CASES = {
     "gqa_6_2_long": ("phi3-medium-14b", dict(n_heads=6, n_kv_heads=2, n_layers=1), 4160, 2,
                      "ep_model", False),
     "hybrid": ("zamba2-1.2b", {}, 32, 4, "ep_model", True),
+    "hybrid_batch2": ("zamba2-1.2b", {}, 16, 2, "ep_model", True),
     "moe_mla": ("deepseek-v2-236b", {}, 16, 4, "ep_model", True),
     "moe_mla_long": ("deepseek-v2-236b", {}, 4160, 2, "ep_model", False),
     "moe_gqa": ("llama4-scout-17b-a16e", {}, 16, 4, "ep_model", True),
@@ -70,6 +77,7 @@ CASES = {
     "vlm": ("qwen2-vl-72b", {}, 16, 4, "ep_model", True),
     "encdec": ("seamless-m4t-large-v2", {}, 16, 4, "ep_model", True),
     "ssm": ("xlstm-1.3b", {}, 8, 4, "ep_model", True),
+    "ssm_uneven_heads": ("xlstm-1.3b", dict(n_heads=2), 8, 4, "ep_model", True),
     "dense_qk_norm": ("qwen3-32b", {}, 16, 4, "ep_model", False),
     "dense_mqa": ("granite-34b", {}, 16, 4, "ep_model", False),
 }
@@ -81,6 +89,7 @@ SPLIT = {
     "gqa_6_2_long": ("blocks.0.attn.wq.w", "blocks.0.attn.wk.w"),
     "hybrid": ("mamba.0.0.in_proj.w", "mamba.0.0.conv_w", "mamba.0.0.out_proj.w",
                "shared_attn.wq.w"),
+    "hybrid_batch2": ("mamba.0.0.in_proj.w", "shared_attn.wq.w"),
     "moe_mla": ("blocks.0.moe.w_gate", "blocks.0.attn.w_uq.w", "blocks.0.attn.w_uk.w",
                 "blocks.0.attn.w_uv.w"),
     "moe_mla_long": ("blocks.0.moe.w_gate", "blocks.0.attn.w_uq.w"),
@@ -89,6 +98,7 @@ SPLIT = {
     "vlm": ("blocks.0.attn.wq.w",),
     "encdec": ("enc_blocks.0.attn.wq.w", "dec_blocks.0.cross_attn.wk.w"),
     "ssm": ("mlstm.0.0.wq.w", "mlstm.0.0.w_if.w", "slstm.0.w_in.w"),
+    "ssm_uneven_heads": ("mlstm.0.0.wq.w", "slstm.0.w_in.w"),
     "dense_qk_norm": ("blocks.0.attn.wq.w",),
     "dense_mqa": ("blocks.0.attn.wq.w",),
 }
@@ -241,7 +251,7 @@ def test_sharded_step_matches_the_unsharded_step(world, name):
     got, want = _result(world, name), world[1][name]["port"]
     assert got["placed"]
     for key in ("loss", "grad_norm", "loss_after"):
-        rel = 2e-5 if (name, key) == ("ssm", "grad_norm") else 1e-5
+        rel = 2e-5 if key == "grad_norm" and name.startswith("ssm") else 1e-5
         assert got[key] == pytest.approx(want[key], rel=rel), key
     updates_near(got["params"], want["params"], world[1][name]["before"], 1e-2)
 

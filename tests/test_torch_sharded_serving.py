@@ -345,13 +345,36 @@ def test_a_stacked_axis_of_the_batch_size_runs(world):
 
 
 def test_decode_never_gathers_a_cache(world):
-    """Under ``CommDebugMode``, a dense decode step hands its collectives as
+    """Under the collective counter, a dense decode step hands its collectives as
     many bytes, in as many calls, at ``max_len`` 64 as at 256: nothing that
     crosses the ranks scales with the cache."""
     short, long = _result(world, "gqa_4_2"), _result(world, "gqa_4_2_len256")
     for a, b in zip(short["collectives"], long["collectives"]):
         assert a == b
     assert short["collectives"][0]["bytes"] > 0
+
+
+def test_the_dry_run_counts_a_decode_steps_collectives(world):
+    """The dry run (``launch.dryrun``) of ``gqa_4_2``'s decode cell on a
+    fake world of eight ranks, (data 2, model 4), hands its collectives as
+    many bytes, in as many calls, kind by kind, as rank 0 of the gloo world
+    counted in each of its decode steps: the same step under the same
+    counter (``repro_torch.obs.collectives``), fake tensors against real."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    arch, widths, (_, bsz, max_len, _), _ = CASES["gqa_4_2"]
+    cfg = W.case_config({"arch": arch, "widths": widths})
+    dry = dryrun.run_cell(arch, "decode_32k", multi_pod=False, device="cpu",
+                          mesh_shape=W.MESH, cfg=cfg,
+                          shape=ShapeConfig("decode_case", "decode", max_len, bsz),
+                          verbose=False)
+    dry_bytes = {k: v for k, v in dry["collectives"].items() if k not in ("total", "num_ops")}
+    steps = _result(world, "gqa_4_2")["collectives"]
+    assert len(steps) == STEPS and dry["collectives"]["num_ops"] > 0
+    for step in steps:
+        assert {k: v["calls"] for k, v in step["by_kind"].items()} == dry["collective_calls"]
+        assert {k: float(v["bytes"]) for k, v in step["by_kind"].items()} == dry_bytes
 
 
 def test_xlstm_moves_this_far_unsharded(world):

@@ -11,10 +11,13 @@ rank whose group the caller made.  Imports neither ``jax`` nor ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
 import torch
+
+from repro_torch.obs.collectives import CollectiveCount
 
 DEVICE = "cuda"
 
@@ -122,77 +125,6 @@ def step_launches(cfg, seq_len: int) -> dict:
     return out
 
 
-class CollectiveCount:
-    """Collective calls and bytes of one rank, by kind, while active:
-    DTensor's (the functional collectives, seen by a dispatch mode) and the
-    port's own ``dist.all_reduce`` / ``dist.all_to_all_single`` (the
-    vocab-parallel loss, the pipeline), seen by wrappers.  Bytes are what
-    the rank hands the collective: an all-gather's shard, a
-    reduce-scatter's or an all-reduce's whole input, an all-to-all's sent
-    part."""
-
-    _active = None   # threading.local: the calling thread's counter
-    _wrapped = False
-
-    def __init__(self):
-        from collections import Counter
-
-        self.calls, self.bytes = Counter(), Counter()
-
-    def add(self, kind: str, tensors) -> None:
-        self.calls[kind] += 1
-        self.bytes[kind] += sum(t.numel() * t.element_size() for t in tensors
-                                if isinstance(t, torch.Tensor))
-
-    @classmethod
-    def _install(cls) -> None:
-        import threading
-
-        import torch.distributed as dist
-
-        if cls._wrapped:
-            return
-        cls._active, cls._wrapped = threading.local(), True
-        for name, kind, sent in (("all_reduce", "port/all_reduce", lambda a, k: [a[0]]),
-                                 ("all_to_all_single", "port/all_to_all_single",
-                                  lambda a, k: [a[1]])):
-            orig = getattr(dist, name)
-
-            def wrapped(*args, _orig=orig, _kind=kind, _sent=sent, **kwargs):
-                counter = getattr(cls._active, "counter", None)
-                if counter is not None:
-                    counter.add(_kind, _sent(args, kwargs))
-                return _orig(*args, **kwargs)
-
-            setattr(dist, name, wrapped)
-
-    def __enter__(self):
-        from torch.utils._python_dispatch import TorchDispatchMode
-        from torch.utils._pytree import tree_leaves
-
-        self._install()
-        counter = self
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                name = func._opname
-                if func.namespace == "_c10d_functional" and not name.startswith(("wait", "_")):
-                    counter.add(f"dtensor/{name}", tree_leaves(args)[:1])
-                return func(*args, **(kwargs or {}))
-
-        self._mode = Mode()
-        self._mode.__enter__()
-        CollectiveCount._active.counter = self
-        return self
-
-    def __exit__(self, *exc):
-        CollectiveCount._active.counter = None
-        self._mode.__exit__(*exc)
-
-    def summary(self) -> dict:
-        return {k: {"calls": self.calls[k], "bytes": self.bytes[k]} for k in sorted(self.calls)}
-
-
 def depth_config(arch: str, layers: int | None = None):
     """``arch`` at its published widths, ``layers`` of its layers (all of
     them by default)."""
@@ -227,8 +159,8 @@ def train_run(cfg, params, batches, lr: float, *, vocab_chunk: int = 0, mesh=Non
               step1: str = "", device: str | None = None, opt_state=None,
               first_step: int = 0, after_step=None) -> dict:
     """Steps of ``make_train_step`` over ``batches`` (placed on ``mesh``
-    when given), each timed and its launches and collectives read, on
-    ``device`` (default the GPU).  ``step1``: "keep" the parameters after
+    when given), each timed and its launches read, and the last one's
+    collectives, on ``device`` (default the GPU).  ``step1``: "keep" the parameters after
     the first step (whole, on the host), "join" the gathers of them only (a
     rank other than 0), or "" neither.  ``opt_state``: the optimizer state
     to start from (a restored checkpoint's, ``first_step`` steps in; the
@@ -259,7 +191,8 @@ def train_run(cfg, params, batches, lr: float, *, vocab_chunk: int = 0, mesh=Non
         if cuda:
             torch.cuda.synchronize()
         reset_rank_launches()
-        with CollectiveCount() as coll:
+        last = i == len(batches) - 1   # the counter's dispatch slows every op it sees
+        with CollectiveCount() if last else contextlib.nullcontext() as coll:
             t0 = time.perf_counter()
             _, state.opt_state, _, m = step(params, state.opt_state, None, batch, None)
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
@@ -267,7 +200,8 @@ def train_run(cfg, params, batches, lr: float, *, vocab_chunk: int = 0, mesh=Non
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
         steps.append({"loss": loss, "grad_norm": gnorm, "seconds": seconds,
-                      "launches": rank_launches(), "collectives": coll.summary()})
+                      "launches": rank_launches(),
+                      "collectives": coll.summary() if last else None})
         if after_step is not None:
             after_step(i, params, state.opt_state)
         if step1 and i == 0:
@@ -487,8 +421,8 @@ def serve_run(cfg, params, *, max_len: int, steps: int, batch=None, cache=None,
     taking the tokens ``forced``.  On ``mesh``: ``launch.specs.build_cell``'s prefill and
     decode steps, every argument placed as the cells' ``in_shardings``
     say; else the model's own.  Each phase timed (host clock after a
-    synchronise), its launches and the decode steps' collectives read; the
-    logits (on the host, with ``keep``) and the tokens of every step."""
+    synchronise), its launches and the last decode step's collectives read;
+    the logits (on the host, with ``keep``) and the tokens of every step."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.configs import ShapeConfig
@@ -558,14 +492,18 @@ def serve_run(cfg, params, *, max_len: int, steps: int, batch=None, cache=None,
         out["tokens"].append(tokens.cpu())
         sync()
         reset_rank_launches()
-        with CollectiveCount() as coll:
-            t0 = time.perf_counter()
-            logits, cache = step(params, place(tokens, t_shard), cache, {})
-            full = whole(logits)
-            sync()
-            out["decode_seconds"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        placed = place(tokens, t_shard)
+        last = i == steps - 1   # the counter's dispatch slows every op it sees
+        # the step's own collectives: the dry run counts the same
+        with CollectiveCount() if last else contextlib.nullcontext() as coll:
+            logits, cache = step(params, placed, cache, {})
+        full = whole(logits)
+        sync()
+        out["decode_seconds"].append(time.perf_counter() - t0)
         out["decode_launches"].append(rank_launches())
-        out["collectives"].append(coll.summary())
+        if last:
+            out["collectives"].append(coll.summary())
         if keep:
             out["logits"].append(full.float().cpu())
         tokens = full.argmax(-1, keepdim=True)
