@@ -149,11 +149,11 @@ one JSON object per line:
    ``serve_sharded`` — ``launch.specs.build_cell``'s prefill and decode
                       steps on (data 2, model 2), four thread ranks, caches
                       in ``state_shardings``' layouts: qwen2-7b (4 of 28
-                      layers) and zamba2-1.2b (38) in bf16, 2 prompts of
-                      4608 tokens into 8192 positions and 8 greedy steps
-                      (zamba2 3),
-                      zamba2 at long_500k's shape (a seeded cache of 524 288
-                      positions, 3 steps); every rank's B4 and B5 launches
+                      layers) and zamba2-1.2b (4 of 38: two shared-block
+                      invocations) in bf16, 2 prompts of 4608 tokens into
+                      8192 positions and 8 greedy steps (zamba2 3),
+                      zamba2 (4 of 38) at long_500k's shape (a seeded cache
+                      of 524 288 positions, 3 steps); every rank's B4 and B5 launches
                       and heads a prefill, none in decode; held to the
                       unsharded run on the card (bf16: against the same run
                       in f32, SERVE_SHARDED's f32_slack), and f32 replays of
@@ -191,6 +191,24 @@ one JSON object per line:
                       a server that SIGKILLs itself mid-tick, restarted on its
                       journal and snapshots, whose replies ``==`` the run that
                       was not killed.  Ticks/s and round-trip ms per submit.
+10. ``examples_tools`` — the port's examples and tools as a user runs them on
+                      the card: ``examples/torch_quickstart.py``,
+                      ``torch_serve_lm.py`` (12 requests of 16 tokens) and
+                      ``torch_train_lm.py --steps 40`` (finite losses, the
+                      smoothed loss falling) in child processes, each model
+                      example's placement report equal to its ``--device
+                      cpu`` run's; ``torch_adaptive_offload`` in this
+                      process, its output on the card ``==`` its output on
+                      the CPU, 0 dispatches on its warm restart;
+                      ``tools/torch_chaos_trace.py`` at its defaults (every
+                      request resolved, faults injected) and
+                      ``tools/tracequery.py --audit`` of its trace;
+                      ``tools/torch_ipc_smoke.py`` at its defaults (a solver
+                      process on the card, 1 000 users over 2 client
+                      processes, 6 ticks): every tick reported, solves in
+                      the server's reports, ``tracequery --audit`` and
+                      ``tools/wire_journal.py --verify`` rc 0, no process
+                      left.  Seconds of each run.
 
 Main paths, each driven with every launch counter set to 0 just before
 it and read just after: phases 4-5 (the broker tick: B1, B2), phase
@@ -204,7 +222,12 @@ kernel of a path that was not launched there fails the run; in phases
 ``serve_sharded`` each rank keeps
 its own counts (B4, B4-bwd, B5 and B5-bwd),
 set to 0 before each step or run and read after it; the server of phase 9 runs B1 in its own
-process, so the phase fails unless its tick reports show solves.  Then a
+process, so the phase fails unless its tick reports show solves, and so
+does the ipc smoke's server in phase 10 (its workers' reports must show
+solves); that phase's ``torch_adaptive_offload`` and ``torch_chaos_trace``
+runs on the card each set B1's and B2's counts to 0 before and fail unless
+one of them was launched (the model examples run reduced configs, whose
+prompts take no kernel).  Then a
 ``kernel_work`` line counts the work of the MCOP kernels' timed shapes
 (absorb steps, row traffic, B3's chain and bound terms; computed from the
 inputs, not measured), the measured ns per absorb step of B1 and B2 at the
@@ -433,6 +456,11 @@ MIN_CUT ={"phase_n": (6, 16, 64, 256, 1024), "graphs": 100, "sizes": (5, 256),
 SERVE_BROKER = {"nodes": 24, "seed": 0, "sessions": 300, "ticks": 24,
                 "group_tick": 14, "capacity": 2048, "kill_tick": 10,
                 "snapshot_every": 4, "ready_s": 120.0}
+# the examples and tools of the port (phase examples_tools): the two model
+# examples' request and step counts, torch_ipc_smoke's defaults (U users over
+# `clients` client processes, `ticks` ticks), and a child's time limit (s)
+EXAMPLES_TOOLS = {"serve_requests": 12, "serve_new_tokens": 16, "train_steps": 40,
+                  "ipc": {"users": 1000, "clients": 2, "ticks": 6}, "timeout": 300}
 
 
 def emit(obj: dict) -> None:
@@ -3216,6 +3244,232 @@ def phase_serve_broker() -> dict:
 
 
 # ----------------------------------------------------------------------
+# Phase examples_tools: the examples and tools of the port
+# ----------------------------------------------------------------------
+
+class Child:
+    """A script of the repository in a process of its own (and its own
+    process group, so that nothing it starts outlives a timeout).  A thread
+    reads its output as it comes and notes when it ended, so the seconds
+    are its own whenever the phase collects it."""
+
+    def __init__(self, *argv):
+        import threading
+
+        self.argv = [str(a) for a in argv]
+        self.started = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, *self.argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, cwd=ROOT, start_new_session=True,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        try:
+            out, err = self.proc.communicate(timeout=EXAMPLES_TOOLS["timeout"])
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, 9)
+            out, err = self.proc.communicate()
+        self.stdout, self.stderr = out, err
+        self.seconds = time.perf_counter() - self.started
+
+    def finish(self) -> float:
+        """The child's seconds once it has ended; a nonzero exit fails."""
+        self.reader.join()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"examples_tools: {' '.join(self.argv)} exited "
+                                 f"{self.proc.returncode}\n{self.stdout}\n{self.stderr}")
+        return self.seconds
+
+    def lines(self, prefix: str) -> list[str]:
+        return [ln for ln in self.stdout.splitlines() if ln.startswith(prefix)]
+
+
+def script_main(rel: str):
+    """The ``main`` of an example or tool of the repository, in process."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "script_" + os.path.basename(rel)[:-3], os.path.join(ROOT, rel))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.main
+
+
+def stdout_of(fn, argv) -> str:
+    """What ``fn(argv)`` prints; it must return 0."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    if rc != 0:
+        raise AssertionError(f"examples_tools: {argv} returned {rc}\n{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def stdlib_tool(*argv) -> None:
+    """``tools/tracequery.py`` or ``tools/wire_journal.py`` as it is: rc 0."""
+    out = subprocess.run([sys.executable, *[str(a) for a in argv]], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"examples_tools: {' '.join(map(str, argv))} exited "
+                             f"{out.returncode}\n{out.stdout}\n{out.stderr}")
+
+
+def processes_naming(text: str) -> list[str]:
+    """Living processes whose command line names ``text`` (Linux ``/proc``)."""
+    left = []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if text in cmd:
+            left.append(f"{pid}: {cmd}")
+    return left
+
+
+def phase_examples_tools() -> dict:
+    """The port's examples and tools on the card, as a user runs them:
+    ``torch_quickstart``, ``torch_serve_lm`` and ``torch_train_lm`` in child
+    processes (started first, they run beside the rest), then
+    ``torch_adaptive_offload`` and ``torch_chaos_trace`` in this process
+    (B1 and B2 counted around each card run), then ``torch_ipc_smoke``
+    (a solver process on the card and two client processes).  Each model
+    example's placement report equals its ``--device cpu`` run's."""
+    import tempfile
+
+    from repro_torch.kernels import mcop_phase as K
+
+    spec = EXAMPLES_TOOLS
+    out = {"phase": "examples_tools", "spec": spec}
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="examples_tools_") as tmp:
+        children = {}
+        try:
+            children["quickstart"] = Child("examples/torch_quickstart.py", "--device", DEVICE)
+            children["serve_lm"] = Child("examples/torch_serve_lm.py", "--device", DEVICE)
+            children["train_lm"] = Child("examples/torch_train_lm.py", "--device", DEVICE,
+                                         "--steps", spec["train_steps"], "--ckpt-dir",
+                                         os.path.join(tmp, "train_lm"))
+
+            # ---- adaptive_offload: the card's output == the CPU's -----------
+            adaptive = script_main("examples/torch_adaptive_offload.py")
+            t0 = time.perf_counter()
+            K.reset_launches()
+            on_card = stdout_of(adaptive, ["--device", DEVICE])
+            launches = {k: K.LAUNCHES[k] for k in BROKER_PATH_KERNELS}
+            seconds["adaptive_offload"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            on_cpu = stdout_of(adaptive, ["--device", "cpu"])
+            seconds["adaptive_offload_cpu"] = time.perf_counter() - t0
+            if on_card != on_cpu:
+                raise AssertionError("examples_tools: torch_adaptive_offload prints other "
+                                     f"lines on the card\n{on_card}\n---\n{on_cpu}")
+            if sum(launches.values()) <= 0:
+                raise AssertionError("examples_tools: torch_adaptive_offload launched "
+                                     f"no solve kernel {launches}")
+            warm = "→ restart + warm cache, same day replayed: 0 solver dispatches"
+            if warm not in on_card:
+                raise AssertionError("examples_tools: the warm restart dispatched")
+            out["adaptive_offload"] = {"launches": launches, "stdout_equal_cpu": True,
+                                       "lines": len(on_card.splitlines())}
+
+            # ---- chaos_trace at its defaults, then the trace audit ---------
+            chaos_out = os.path.join(tmp, "chaos.jsonl")
+            t0 = time.perf_counter()
+            K.reset_launches()
+            line = stdout_of(script_main("tools/torch_chaos_trace.py"),
+                             ["--out", chaos_out, "--device", DEVICE]).strip()
+            launches = {k: K.LAUNCHES[k] for k in BROKER_PATH_KERNELS}
+            seconds["chaos_trace"] = time.perf_counter() - t0
+            fields = dict(kv.split("=", 1) for kv in line.split() if "=" in kv)
+            if int(fields["faults"]) <= 0 or sum(launches.values()) <= 0:
+                raise AssertionError(f"examples_tools: chaos trace {line} {launches}")
+            stdlib_tool("tools/tracequery.py", "--audit", chaos_out)
+            out["chaos_trace"] = {"launches": launches, "audit": 0, **{
+                k: fields[k] for k in ("requests", "faults", "retries", "breaker_trips",
+                                       "degraded")}}
+
+            # ---- ipc_smoke at its defaults: a solver process on the card ----
+            ipc_dir = os.path.join(tmp, "ipc")
+            ipc = spec["ipc"]
+            smoke = Child("tools/torch_ipc_smoke.py", "--dir", ipc_dir, "--device", DEVICE,
+                          "--users", ipc["users"], "--clients", ipc["clients"],
+                          "--ticks", ipc["ticks"])
+            children["ipc_smoke"] = smoke
+            seconds["ipc_smoke"] = smoke.finish()
+            names = [f"smoke{i}" for i in range(ipc["clients"])]
+            reports = {}
+            for name in names:
+                with open(os.path.join(ipc_dir, f"{name}.reports.json")) as f:
+                    reports[name] = json.load(f)
+            if any(len(r) != ipc["ticks"] for r in reports.values()):
+                raise AssertionError("examples_tools: a worker missed a tick report")
+            solved = sum(r["solved"] for rs in reports.values() for r in rs)
+            if solved <= 0:
+                raise AssertionError("examples_tools: the ipc server solved nothing")
+            stdlib_tool("tools/tracequery.py", "--audit", os.path.join(ipc_dir,
+                                                                        "ipc_trace.jsonl"))
+            stdlib_tool("tools/wire_journal.py", "--verify",
+                        os.path.join(ipc_dir, "journal.jsonl"),
+                        "--snapshot-dir", os.path.join(ipc_dir, "snaps"))
+            out["ipc_smoke"] = {"smoke_line": smoke.lines("SMOKE ok")[0], "solved": solved,
+                                "reports": {k: len(v) for k, v in reports.items()},
+                                "audit": 0, "journal_verify": 0}
+
+            # ---- the children started first --------------------------------
+            for name in ("quickstart", "serve_lm", "train_lm"):
+                seconds[name] = children[name].finish()
+            qs = children["quickstart"]
+            if not qs.lines("optimal cut = 22  local=['a', 'c']"):
+                raise AssertionError(f"examples_tools: quickstart\n{qs.stdout}")
+            serve = children["serve_lm"]
+            n, tokens = spec["serve_requests"], spec["serve_requests"] * spec["serve_new_tokens"]
+            if not serve.lines(f"[serve] {n} requests, {tokens} tokens in "):
+                raise AssertionError(f"examples_tools: serve_lm\n{serve.stdout}")
+            t0 = time.perf_counter()
+            serve_cpu = stdout_of(script_main("examples/torch_serve_lm.py"),
+                                  ["--device", "cpu"])
+            train_cpu = stdout_of(script_main("examples/torch_train_lm.py"),
+                                  ["--steps", "1", "--device", "cpu",
+                                   "--ckpt-dir", os.path.join(tmp, "train_lm_cpu")])
+            seconds["placements_cpu"] = time.perf_counter() - t0
+            train = children["train_lm"]
+            for child, cpu, prefix in ((serve, serve_cpu, "[serve] MCOP placement:"),
+                                       (train, train_cpu, "[train] MCOP placement:")):
+                want = [ln for ln in cpu.splitlines() if ln.startswith(prefix)]
+                if child.lines(prefix) != want or len(want) != 1:
+                    raise AssertionError(f"examples_tools: {child.lines(prefix)} on the card "
+                                         f"against {want} on the CPU")
+            losses = [float(ln.split()[4]) for ln in train.lines("[train] step ")]
+            done = train.lines("[train] done: ")
+            smoothed = done[0].split("(")[1].split(" ")[0].split("->") if done else []
+            if not (losses and np.isfinite(losses).all() and len(smoothed) == 2
+                    and float(smoothed[1]) < float(smoothed[0])):
+                raise AssertionError(f"examples_tools: train_lm\n{train.stdout}")
+            out["serve_lm"] = {"line": serve.lines(f"[serve] {n} requests")[0],
+                               "placement": serve.lines("[serve] MCOP placement:")[0]}
+            out["train_lm"] = {"losses": losses, "done": done[0],
+                               "placement": train.lines("[train] MCOP placement:")[0],
+                               "params": train.lines("[train] qwen2-7b:")[0]}
+        finally:
+            for child in children.values():
+                if child.proc.poll() is None:
+                    os.killpg(child.proc.pid, 9)
+                child.reader.join()
+        left = processes_naming(tmp) + child_processes()
+        if left:
+            raise AssertionError(f"examples_tools: processes left: {left}")
+    out["seconds_by_run"] = seconds
+    return out
+
+
+# ----------------------------------------------------------------------
 # Phases train_sharded and pipeline: distributed training on one card
 # ----------------------------------------------------------------------
 
@@ -3286,13 +3540,16 @@ TRAIN_SHARDED_MLA = {
                                       qk_rope_head_dim=64, v_head_dim=128)}}}
 
 # Serving sharded on (data 2, model 2), four ranks as threads on the card:
-# qwen2-7b (4 of its 28 layers) and zamba2-1.2b (all 38) at published
-# widths in bf16, 2 prompts of 4608 tokens (above 4096: B4's chunked route)
-# into a cache of 8192 positions, then 8 greedy decode steps (zamba2's 4:
-# a step is ~10 s of four threads' host time at 38 layers); zamba2 at
-# long_500k's shape (batch 1, a cache of 524 288 positions, its 4096-slot
-# ring and the Mamba2 states seeded, at length 524 280), 4 steps; and f32
-# replays of those three runs at reduced widths.  The unsharded runs on
+# qwen2-7b (4 of its 28 layers) and zamba2-1.2b (4 of its 38: two groups,
+# so the shared block and B4 still run twice, and B5 on every rank) at
+# published widths in bf16, 2 prompts of 4608 tokens (above 4096: B4's
+# chunked route) into a cache of 8192 positions, then 8 greedy decode steps
+# (zamba2's 3); zamba2 (4 layers) at long_500k's shape (batch 1, a cache of
+# 524 288 positions, its 4096-slot ring and the Mamba2 states seeded, at
+# length 524 280), 3 steps; and f32 replays of those three runs at reduced
+# widths.  The readings below were taken with zamba2 at all 38 layers (a
+# decode step then ~10 s of four threads' host time); at 4 layers an H100
+# read 1.39 (prompt run) and 1.07 (long_500k) at seed 0.  The unsharded runs on
 # the card take the sharded runs' tokens.  bf16: the partial sums over
 # "model" round in bf16 in another order, so each run is also replayed
 # unsharded in f32 on the same tokens, and the sharded logits must lie
@@ -3323,10 +3580,10 @@ SERVE_SHARDED = {
     "runs": {
         "qwen2-7b": {"arch": "qwen2-7b", "layers": 4, "prompt_len": 4608, "batch": 2,
                      "max_len": 8192, "steps": 8, "logit_tol": 5e-2},
-        "zamba2-1.2b": {"arch": "zamba2-1.2b", "prompt_len": 4608, "batch": 2,
+        "zamba2-1.2b": {"arch": "zamba2-1.2b", "layers": 4, "prompt_len": 4608, "batch": 2,
                         "max_len": 8192, "steps": 3},
-        "zamba2-1.2b_long500k": {"arch": "zamba2-1.2b", "batch": 1, "max_len": 524_288,
-                                 "length": 524_280, "steps": 3},
+        "zamba2-1.2b_long500k": {"arch": "zamba2-1.2b", "layers": 4, "batch": 1,
+                                 "max_len": 524_288, "length": 524_280, "steps": 3},
         "qwen2-7b_f32": {"arch": "qwen2-7b", "prompt_len": 4608, "batch": 2, "max_len": 8192,
                          "steps": 8, "rtol": 1e-5,
                          "widths": dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
@@ -4293,6 +4550,10 @@ def main() -> int:
     served["seconds"] = time.perf_counter() - t0
     served["gpu"] = gpu
     emit(served)
+    t0 = time.perf_counter()
+    examples = phase_examples_tools()
+    examples["seconds"] = time.perf_counter() - t0
+    emit(examples)
 
     work, kernels = kernel_lines(rng, launches)
     for entry in kernels["kernels"]:  # B1 and B2: their launches on the fleet path too

@@ -10,12 +10,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-# the smoke, and the tools that share its rank code or its phases
-PORT_FILES = SRC_FILES + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_dist_ranks.py",
-    ROOT / "tools" / "torch_sharded_train.py", ROOT / "tools" / "torch_sharded_limits.py",
-    ROOT / "tools" / "torch_sharded_serve.py",
-]
+# the smoke, and every example and tool of the port
+PORT_FILES = SRC_FILES + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + sorted((ROOT / "tools").glob("torch_*.py"))
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|from\s+repro(\.|\s))",
     re.MULTILINE,
@@ -54,6 +51,16 @@ def test_port_has_the_expected_modules():
 def test_no_jax_and_no_repro_import(path):
     hit = FORBIDDEN.search(path.read_text())
     assert hit is None, f"{path}: forbidden import {hit.group(0).strip()!r}"
+
+
+def test_every_example_and_tool_of_the_port_is_checked():
+    checked = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for rel in ("examples/torch_quickstart.py", "examples/torch_adaptive_offload.py",
+                "examples/torch_serve_lm.py", "examples/torch_train_lm.py",
+                "tools/torch_chaos_trace.py", "tools/torch_ipc_smoke.py",
+                "tools/torch_kernel_probe.py", "tools/torch_tree_timing.py",
+                "tools/torch_dist_ranks.py"):
+        assert rel in checked
 
 
 def test_kernel_sources_are_in_the_tree():
@@ -158,7 +165,9 @@ ENTRIES = ["mcop_batch", "solve_envs", "mcop", "price_summary",
            "min_cut", "serve_broker_main", "serve_broker_reference",
            "solver_mesh", "elastic_manager", "sharded_solve_envs", "model_init_moe",
            "engine_extras", "serve_main_encdec", "train_main", "train_dataset",
-           "local_mesh", "production_mesh", "dryrun_cell"]
+           "local_mesh", "production_mesh", "dryrun_cell", "example_quickstart",
+           "example_adaptive_offload", "example_serve_lm", "example_train_lm",
+           "tool_chaos_trace"]
 
 _NO_GPU_CODE = """
 import json
@@ -201,6 +210,16 @@ from repro_torch.profilers import stage_specs
 from repro_torch.serving import ServingConfig, ServingEngine
 from repro_torch.launch.dryrun import run_cell as dryrun_cell
 
+import importlib.util, sys
+
+
+def script(rel):  # an example's or tool's main, loaded from the repository
+    spec = importlib.util.spec_from_file_location(
+        rel.replace("/", "_")[:-3], os.path.join(sys.argv[1], rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
 zamba = reduce_config(get_config("zamba2-1.2b"))
 vlm = reduce_config(get_config("qwen2-vl-72b"))
 
@@ -240,6 +259,14 @@ runs = {
     # the default device is the GPU whatever the backend: never a silent host run
     "serve_broker_reference": lambda: serve_broker_main(
         ["--socket", sock, "--backend", "reference"]),
+    # the examples and tools of the port at their default device
+    "example_quickstart": lambda: script("examples/torch_quickstart.py")([]),
+    "example_adaptive_offload": lambda: script("examples/torch_adaptive_offload.py")([]),
+    "example_serve_lm": lambda: script("examples/torch_serve_lm.py")([]),
+    "example_train_lm": lambda: script("examples/torch_train_lm.py")(
+        ["--steps", "1", "--ckpt-dir", os.path.join(tempfile.mkdtemp(), "ck")]),
+    "tool_chaos_trace": lambda: script("tools/torch_chaos_trace.py")(
+        ["--out", os.path.join(tempfile.mkdtemp(), "t.jsonl")]),
     "controller": lambda: T.AdaptiveController(p, model, backend="cuda").observe(env),
     "broker": broker,
     "resilient_broker": lambda: broker(
@@ -264,7 +291,7 @@ def raised_without_a_gpu(tmp_path_factory):
 
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
            "CUDA_VISIBLE_DEVICES": ""}
-    out = subprocess.run([sys.executable, "-c", _NO_GPU_CODE], env=env,
+    out = subprocess.run([sys.executable, "-c", _NO_GPU_CODE, str(ROOT)], env=env,
                          cwd=tmp_path_factory.mktemp("nogpu"),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -10,6 +10,8 @@
   mid-tick and restarted on its journal and snapshots answers ``==`` the
   uninterrupted run, and resubmission never double-counts.  Every read is
   timeout-bounded, so a hang is a failure, not a stall.
+* An LLM stage-graph tenant (qwen2-7b's stages) over the port's wire:
+  replies ``==`` an in-process ``repro`` broker's.
 """
 
 import dataclasses
@@ -360,3 +362,58 @@ def test_reconnect_against_live_server_is_idempotent(tmp_path):
     finally:
         proc.kill()
         proc.wait()
+
+
+def test_ipc_serves_llm_stage_profile(tmp_path):
+    """The serving plane is model-agnostic: qwen2-7b's stage graph as a
+    tenant of a port server, driven by a port client, replies ``==`` a JAX
+    in-process broker's (both on the f64 reference backend), and the
+    revisit is a cache hit."""
+    from repro.configs import ARCHITECTURES as J_ARCHS, SHAPES as J_SHAPES
+    from repro.core.placement import TPUV5E_TIER as J_TIER, build_stage_wcg as j_stage_wcg
+    from repro.profilers.program import stage_specs as j_stage_specs
+    from repro_torch.configs import ARCHITECTURES, SHAPES
+    from repro_torch.core.placement import TPUV5E_TIER, build_stage_wcg
+    from repro_torch.profilers.program import stage_specs
+
+    j_stages = j_stage_specs(J_ARCHS["qwen2-7b"], J_SHAPES["train_4k"], group=8)
+    pj = J.AppProfile.from_wcg_times(j_stage_wcg(j_stages, J_TIER, J_TIER))
+    stages = stage_specs(ARCHITECTURES["qwen2-7b"], SHAPES["train_4k"], group=8)
+    pt = T.AppProfile.from_wcg_times(build_stage_wcg(stages, TPUV5E_TIER, TPUV5E_TIER))
+    for field in ("t_local", "data_in", "data_out", "offloadable"):
+        assert np.array_equal(getattr(pt, field), getattr(pj, field)), field
+    envs = [(bw, 2.0) for bw in (4.0, 0.5, 4.0)]
+
+    local = JS.OffloadBroker(backend="reference", clock=lambda: 0.0)
+    local.register("llm", pj, J.ResponseTimeModel())
+    want = []
+    for bw, f in envs:
+        fut = local.submit("llm", J.Environment.symmetric(bw, f))
+        local.tick()
+        want.append(_sig(fut.result))
+
+    broker = TS.OffloadBroker(backend="reference", device="cpu", clock=lambda: 0.0)
+    broker.register("llm", pt, T.ResponseTimeModel())
+    server = TS.SolverServer(broker, address=TS.unix_address(tmp_path / "llm.sock"),
+                             journal_path=tmp_path / "llm.jsonl",
+                             snapshot_dir=tmp_path / "llm_snaps")
+    server.bind()
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        client = TS.BrokerClient(server.address, tenants={"llm": (pt, T.ResponseTimeModel())},
+                                 client="llm-drv", timeout=TIMEOUT)
+        client.connect()
+        got = []
+        for bw, f in envs:
+            fut = client.submit("llm", T.Environment.symmetric(bw, f))
+            client.tick()
+            got.append(_sig(fut.result))
+        client.close()
+    finally:
+        server.stop()
+        thread.join(timeout=TIMEOUT)
+    assert not thread.is_alive()
+    assert got == want
+    assert got[2][1] is True                 # the revisit is a cache hit
+    assert got[0][0][1] != got[1][0][1]      # the two links place the stages apart

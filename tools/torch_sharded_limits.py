@@ -34,8 +34,8 @@ Prints one JSON line a run: the errors the phase holds to its limits
 the sharded run's distances to the unsharded run's.
 
 **Serving** (``--phase serve``): the phase's ``SERVE_SHARDED`` world with
-the runs ``--runs`` (zamba2's four by default: 38 layers in bf16, long_500k's
-shape in bf16, and both at reduced widths in f32), each held to the
+the runs ``--runs`` (zamba2's four by default: 4 of its 38 layers in bf16,
+long_500k's shape in bf16, and both at reduced widths in f32), each held to the
 unsharded run on the card as the phase holds it.  A variant changes the
 port's sharded route only (the unsharded runs take plain tensors):
 
