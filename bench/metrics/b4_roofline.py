@@ -1,0 +1,8 @@
+"""``b4_roofline``: the share of its roofline that b4 reaches in the
+traced units (``roofline.kernel_roofline``), in %."""
+
+from bench.metrics.roofline import kernel_roofline
+
+
+def read(ctx: dict):
+    return kernel_roofline(ctx, "b4")
