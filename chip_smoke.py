@@ -251,10 +251,10 @@ Switches for work on the kernels (environment variables, all off by default):
 spills; ``SMOKE_ONLY_CHECKS=1`` stops after phase 3; ``SMOKE_CHECK_MIN_N=342``
 skips phase 2's shapes below that vertex count (on an H100 what is left runs
 the solve kernels' scratch-matrix variant only; a value above 768 skips phase
-2's shapes altogether); ``SMOKE_PROFILE=1`` wraps the timed broker ticks, and
-one more prefill and 8 decode steps of the served model, in
-``torch.profiler`` and reports the GPU's busy time (by kernel family for
-the model, and B4's and B5's kernels by name) and idle share.
+2's shapes altogether); ``SMOKE_PROFILE=1`` wraps the timed broker ticks in
+``torch.profiler`` and reports the GPU's busy time and idle share.  The
+served model's device time by step is the benchmark's (``bench/``, with
+the engine's trace spans).
 """
 
 from __future__ import annotations
@@ -2211,10 +2211,6 @@ def phase_serve() -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pre_s = sum(w["prefill_seconds"] for w in waves)
     dec_s = sum(w["decode_seconds"] for w in waves)
-    profiles = None
-    if os.environ.get("SMOKE_PROFILE"):
-        profiles = profile_serve_steps(model, params, waves[0]["padded_tokens"] // mb,
-                                       cfg.vocab_size)
     return {
         "phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
         "params": sum(p_.numel() for p_ in params.parameters()),
@@ -2227,65 +2223,7 @@ def phase_serve() -> dict:
         "flash_variant_launches": variants,
         "launches_per_prefill": {k: launches[k] / prefills for k in want},
         "main_path_launches": launches,
-        "profile": profiles,
     }
-
-
-def kernel_time_by_group(prof) -> tuple[dict, dict]:
-    """Device milliseconds of a profiler window, by kernel family; and the
-    kernels of the B4 and B5 families by name (B4's variants, B5's passes)."""
-    groups = {"flash_attention_kernel": 0.0, "mamba_scan_kernel": 0.0,
-              "matrix products": 0.0, "other": 0.0}
-    by_name = {}
-    for ev in prof.key_averages():
-        ms = (getattr(ev, "self_device_time_total", None)
-              or getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
-        if ms <= 0:
-            continue
-        name = ev.key
-        family = next((f for f in ("flash_attention_kernel", "mamba_scan_kernel")
-                       if f in name), None)
-        if family:
-            groups[family] += ms
-            by_name[name] = by_name.get(name, 0.0) + ms
-        elif any(t in name.lower() for t in ("gemm", "cutlass", "nvjet", "sm90_xmma")):
-            groups["matrix products"] += ms
-        else:
-            groups["other"] += ms
-    return groups, by_name
-
-
-def profile_serve_steps(model, params, plen: int, vocab: int) -> dict:
-    """One prefill of a full wave (4 prompts of ``plen`` tokens) and 8
-    decode steps after it, each under ``torch.profiler``: wall seconds, the
-    card's busy milliseconds by kernel family, and its idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    mb = SERVE["max_batch"]
-    toks = torch.randint(1, vocab, (mb, plen), device=DEVICE,
-                         generator=torch.Generator(device=DEVICE).manual_seed(5))
-    cache = model.init_cache(mb, plen + SERVE["new_tokens"] + 1)
-    out = {}
-    for name, steps in (("prefill", 1), ("decode", 8)):
-        torch.cuda.synchronize()
-        # device activity only: host-side tracing would stretch the wall time
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                if name == "prefill":
-                    logits, cache = model.prefill(params, {"tokens": toks}, cache)
-                else:
-                    logits, cache = model.decode_step(
-                        params, logits.argmax(-1, keepdim=True), cache)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        groups, by_kernel = kernel_time_by_group(prof)
-        busy = sum(groups.values())
-        out[name] = {"steps": steps, "wall_seconds": wall, "device_busy_ms": groups,
-                     "kernel_family_ms_by_kernel": by_kernel,
-                     "device_busy_ms_total": busy,
-                     "device_idle_share": 1.0 - busy / 1e3 / wall}
-    return out
 
 
 def phase_serve_replay() -> dict:

@@ -38,6 +38,7 @@ from repro_torch.kernels.mcop_phase import (
     PHASE_MAX_N, LoopState, mcop_phase_step, require_device,
 )
 from repro_torch.models.common import local_shape_offset
+from repro_torch.obs import trace
 
 __all__ = ["flash_attention", "gqa_local_kv", "mamba_chunk_scan", "mcop_min_cut",
            "sharded_attention"]
@@ -62,8 +63,10 @@ def flash_attention(
         return sharded_attention(core, q, k, v)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if q.device.type == "cuda":
+        trace.annotate("model.attention", route="b4")
         out = FlashAttentionFn.apply(qh, kh, vh, causal, window, scale)
     else:
+        trace.annotate("model.attention", route="chunked")
         out = flash_attention_kernel(qh, kh, vh, causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
 

@@ -15,6 +15,12 @@ embeddings for the vision frontend (every prompt must then be at least
 that long: a ``--prompt-len`` not above ``frontend_seq`` is refused), frame
 embeddings for the audio one.  Everything runs on
 ``--device`` (default the GPU; without one this raises ``KernelError``).
+
+``--trace-out PATH`` attaches a tracer and a metrics registry to the
+engine: the engine's and the model's spans go to ``PATH`` as Chrome
+``trace_event`` JSON (``about://tracing``, Perfetto), and one more line
+prints the engine's counters (prompt, padded and generated tokens, steps by
+kind).
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the serving spans here (Chrome trace JSON)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, reduce_config
@@ -46,6 +54,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.mcop_phase import require_device
     from repro_torch.models import common
     from repro_torch.models.transformer import build_model
+    from repro_torch.obs import MetricsRegistry, Tracer
     from repro_torch.profilers.program import stage_specs
     from repro_torch.serving import ServingConfig, ServingEngine
 
@@ -83,6 +92,9 @@ def main(argv=None) -> int:
             lo = cfg.frontend_seq
         else:
             extras["frame_embeds"] = embeds
+    tracer = metrics = None
+    if args.trace_out:
+        tracer, metrics = Tracer(capacity=1 << 16), MetricsRegistry()
     engine = ServingEngine(
         model,
         params,
@@ -93,6 +105,8 @@ def main(argv=None) -> int:
         ),
         extras=extras,
         rng_seed=args.seed,
+        tracer=tracer,
+        metrics=metrics,
     )
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
@@ -111,6 +125,18 @@ def main(argv=None) -> int:
         f"({toks/max(dt,1e-9):.1f} tok/s aggregate) on {device}",
         flush=True,
     )
+    if tracer is not None:
+        n = tracer.export_chrome(args.trace_out)
+        v = metrics.value
+        print(
+            f"[serve] counters: prompt_tokens={v('serve_prompt_tokens'):.0f} "
+            f"padded_tokens={v('serve_padded_tokens'):.0f} "
+            f"generated_tokens={v('serve_generated_tokens'):.0f} "
+            f"steps prefill={v('serve_steps', kind='prefill'):.0f} "
+            f"decode={v('serve_steps', kind='decode'):.0f}; "
+            f"{n} trace events in {args.trace_out}",
+            flush=True,
+        )
     for uid in list(out)[:3]:
         print(f"[serve]   req {uid}: {out[uid][:12]}…", flush=True)
     return 0

@@ -61,6 +61,7 @@ from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.common import linear, rmsnorm
+from repro_torch.obs import trace
 
 __all__ = [
     "KVCache",
@@ -132,6 +133,7 @@ def naive_attention(
     DTensors run it on each rank's shard of whole sequences and whole heads
     (``kernels.ops.sharded_attention``, B4's layouts), never through
     DTensor's rules for its einsums."""
+    trace.annotate("model.attention", route="naive")
     if isinstance(q, DTensor):
         def core(ql, kl, vl):
             return naive_attention(ql, kl, vl, mask_kind=mask_kind, q_pos=q_pos, k_pos=k_pos,
@@ -213,6 +215,7 @@ def decode_attention(
 
     DTensors run it on each rank's shard of the cache
     (:func:`_decode_attention_sharded`): the cache never moves."""
+    trace.annotate("model.attention", route="decode")
     v_key = next((i for i, k in enumerate(ks) if k is v), None)
     if isinstance(v, DTensor):
         return _decode_attention_sharded(qs, ks, v, v_key, q_pos=q_pos, scale=scale,

@@ -35,6 +35,15 @@ in place.  The families:
 Frontends are stubs, as in the JAX package: precomputed patch or frame
 embeddings arrive in the batch.
 
+Serving opens trace spans on the active tracer
+(:func:`repro_torch.obs.trace.span`; nothing without one):
+``model.prefill`` / ``model.decode_step`` around a call, ``model.embed``,
+``model.logits`` (the final norm and the head), and in the decoder-only and
+hybrid families one ``model.attention`` (``layer`` or ``group``, and the
+``route`` that the attention core it calls sets: ``b4``, ``chunked``,
+``naive`` or ``decode``) and ``model.ffn`` a block and one ``model.mamba``
+(``group``, ``layer``) a Mamba2 layer.
+
 Training runs the cache-free paths under autograd.  With ``remat`` each
 layer body (the JAX package's ``jax.checkpoint`` unit: a decoder, encoder
 or cross block, a zamba2 group of Mamba2 layers and the shared block, an
@@ -60,6 +69,7 @@ from repro_torch.kernels.mcop_phase import require_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import common, ffn, ssm
 from repro_torch.models.common import linear, rmsnorm
+from repro_torch.obs import trace
 
 __all__ = ["Model", "DecoderLM", "EncDecLM", "ZambaLM", "XLSTMLM", "build_model",
            "ZAMBA_WINDOW"]
@@ -93,7 +103,8 @@ def _embed_tokens(cfg: ModelConfig, params: nn.Module, batch: dict) -> torch.Ten
     ``ValueError``."""
     dt = common.dtype_of(cfg.dtype)
     tokens = batch["tokens"]
-    x = common.layout_of(common.embed_lookup(params.embed.embedding, tokens).to(dt), tokens)
+    with trace.span("model.embed"):
+        x = common.layout_of(common.embed_lookup(params.embed.embedding, tokens).to(dt), tokens)
     if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
         patches = batch["patch_embeds"]
         pb, pp, pd = patches.shape
@@ -127,10 +138,11 @@ def _serving_logits(cfg: ModelConfig, params: nn.Module, x: torch.Tensor) -> tor
     (``runtime.sharding.input_shardings``): the batch as the residual
     stream's (over the data axes, when they divide it), whole over the
     others, where the LM head gives the vocabulary split over "model"."""
-    logits = _lm_logits(cfg, params, x)[:, 0]
-    if isinstance(logits, DTensor):
-        pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in x.placements)
-        logits = logits.redistribute(logits.device_mesh, pl)
+    with trace.span("model.logits"):
+        logits = _lm_logits(cfg, params, x)[:, 0]
+        if isinstance(logits, DTensor):
+            pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in x.placements)
+            logits = logits.redistribute(logits.device_mesh, pl)
     return logits
 
 
@@ -249,25 +261,29 @@ def _init_decoder_lm(gen, cfg: ModelConfig, *, device) -> DecoderLM:
 
 def _decoder_block(cfg: ModelConfig, p: DecoderBlock, x: torch.Tensor, *,
                    positions: torch.Tensor, cache: dict | None, length: int,
-                   use_chunked: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, aux_loss); the cache slice's tensors are written in place."""
-    h = rmsnorm(p.ln1, x, eps=cfg.norm_eps)
-    if cfg.attn_kind == "mla":
-        mcache = (None if cache is None
-                  else attn_lib.MLACache(cache["c_kv"], cache["k_rope"], length))
-        a, _ = attn_lib.mla_forward(cfg, p.attn, h, positions=positions, cache=mcache,
-                                    use_chunked=use_chunked)
-    else:
-        kcache = None if cache is None else attn_lib.KVCache(cache["k"], cache["v"], length)
-        a, _ = attn_lib.attention_forward(cfg, p.attn, h, positions=positions,
-                                          cache=kcache, use_chunked=use_chunked)
-    x = common.layout_of(x + a, x)
-    h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
-    if p.moe is not None:
-        f, aux = ffn.moe_forward(cfg, p.moe, h)
-    else:
-        f, aux = ffn.swiglu_forward(p.ffn, h), torch.zeros((), device=x.device)
-    return common.layout_of(x + f, x), aux
+                   use_chunked: bool, layer: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux_loss); the cache slice's tensors are written in place.
+    ``layer``: the block's index in the stack, for its trace spans."""
+    with trace.span("model.attention", layer=layer):
+        h = rmsnorm(p.ln1, x, eps=cfg.norm_eps)
+        if cfg.attn_kind == "mla":
+            mcache = (None if cache is None
+                      else attn_lib.MLACache(cache["c_kv"], cache["k_rope"], length))
+            a, _ = attn_lib.mla_forward(cfg, p.attn, h, positions=positions, cache=mcache,
+                                        use_chunked=use_chunked)
+        else:
+            kcache = None if cache is None else attn_lib.KVCache(cache["k"], cache["v"], length)
+            a, _ = attn_lib.attention_forward(cfg, p.attn, h, positions=positions,
+                                              cache=kcache, use_chunked=use_chunked)
+        x = common.layout_of(x + a, x)
+    with trace.span("model.ffn", layer=layer):
+        h = rmsnorm(p.ln2, x, eps=cfg.norm_eps)
+        if p.moe is not None:
+            f, aux = ffn.moe_forward(cfg, p.moe, h)
+        else:
+            f, aux = ffn.swiglu_forward(p.ffn, h), torch.zeros((), device=x.device)
+        x = common.layout_of(x + f, x)
+    return x, aux
 
 
 def _run_decoder_stack(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor, *,
@@ -278,17 +294,19 @@ def _run_decoder_stack(cfg: ModelConfig, params: DecoderLM, x: torch.Tensor, *,
     aux = torch.zeros((), device=x.device)
     length = 0 if cache is None else cache["length"]
     keys = ("c_kv", "k_rope") if cfg.attn_kind == "mla" else ("k", "v")
+    layer = 0
     for prefix, blocks in (("dense0/", params.dense0), ("main/", params.blocks)):
         for i, p in enumerate(blocks or ()):
             c = None if cache is None else {k: common.cache_layer(cache[prefix + k], i)
                                             for k in keys}
 
-            def block(x_, p=p, c=c):
+            def block(x_, p=p, c=c, layer=layer):
                 return _decoder_block(cfg, p, x_, positions=positions, cache=c,
-                                      length=length, use_chunked=use_chunked)
+                                      length=length, use_chunked=use_chunked, layer=layer)
 
             x, a = _body(block, remat and cache is None)(x)
             aux = aux + a
+            layer += 1
     if cache is None:
         return x, None, aux
     cache["length"] = length + x.shape[1]
@@ -483,35 +501,39 @@ def _zamba_group(cfg: ModelConfig, params: ZambaLM, g: int, group, x: torch.Tens
     FFN block with the group's norm scales."""
     s = x.shape[1]
     for i, p_m in enumerate(group):
-        st = None
-        if cache is not None:
-            st = ssm.MambaState(common.cache_layer(cache["mamba"]["h"], g, i),
-                                common.cache_layer(cache["mamba"]["conv"], g, i))
-        if decode:
-            y, new_st = ssm.mamba2_step(cfg, p_m, x, st)
-        else:
-            y, new_st = ssm.mamba2_forward(cfg, p_m, x, st)
-        x = common.layout_of(x + y, x)
-        if cache is not None:
-            common.cache_set(st.h, new_st.h)
-            common.cache_set(st.conv, new_st.conv)
+        with trace.span("model.mamba", group=g, layer=i):
+            st = None
+            if cache is not None:
+                st = ssm.MambaState(common.cache_layer(cache["mamba"]["h"], g, i),
+                                    common.cache_layer(cache["mamba"]["conv"], g, i))
+            if decode:
+                y, new_st = ssm.mamba2_step(cfg, p_m, x, st)
+            else:
+                y, new_st = ssm.mamba2_forward(cfg, p_m, x, st)
+            x = common.layout_of(x + y, x)
+            if cache is not None:
+                common.cache_set(st.h, new_st.h)
+                common.cache_set(st.conv, new_st.conv)
 
-    h = rmsnorm(params.shared_ln[g], x, eps=cfg.norm_eps)
-    if cache is not None:
-        kv = attn_lib.KVCache(common.cache_layer(cache["attn_k"], g),
-                              common.cache_layer(cache["attn_v"], g), length)
-        a, _ = attn_lib.attention_forward(
-            cfg, params.shared_attn, h, positions=positions, cache=kv,
-            window=ZAMBA_WINDOW, ring=True, use_chunked=s > 4096,
-        )
-    else:
-        a, _ = attn_lib.attention_forward(
-            cfg, params.shared_attn, h, positions=positions,
-            window=ZAMBA_WINDOW, use_chunked=s > 4096,
-        )
-    x = common.layout_of(x + a, x)
-    h = rmsnorm(params.shared_ln2[g], x, eps=cfg.norm_eps)
-    return common.layout_of(x + ffn.swiglu_forward(params.shared_ffn, h), x)
+    with trace.span("model.attention", group=g):
+        h = rmsnorm(params.shared_ln[g], x, eps=cfg.norm_eps)
+        if cache is not None:
+            kv = attn_lib.KVCache(common.cache_layer(cache["attn_k"], g),
+                                  common.cache_layer(cache["attn_v"], g), length)
+            a, _ = attn_lib.attention_forward(
+                cfg, params.shared_attn, h, positions=positions, cache=kv,
+                window=ZAMBA_WINDOW, ring=True, use_chunked=s > 4096,
+            )
+        else:
+            a, _ = attn_lib.attention_forward(
+                cfg, params.shared_attn, h, positions=positions,
+                window=ZAMBA_WINDOW, use_chunked=s > 4096,
+            )
+        x = common.layout_of(x + a, x)
+    with trace.span("model.ffn", group=g):
+        h = rmsnorm(params.shared_ln2[g], x, eps=cfg.norm_eps)
+        x = common.layout_of(x + ffn.swiglu_forward(params.shared_ffn, h), x)
+    return x
 
 
 # ======================================================================
@@ -746,34 +768,36 @@ class Model:
         frontends' embeddings (``patch_embeds``, ``frame_embeds``) and, for
         M-RoPE, optional ``positions`` (B, S, 3).  Returns last-position
         logits (B, V) and the cache."""
-        cfg = self.cfg
-        cache, back = _stacks_whole(cache)
-        if cfg.family in ("dense", "moe", "vlm"):
-            x = _embed_tokens(cfg, params, batch)
-            b, s = batch["tokens"].shape
-            pos = _default_positions(cfg, b, s, batch, device=x.device)
-            x, cache, _ = _run_decoder_stack(cfg, params, x, positions=pos, cache=cache,
-                                             use_chunked=s > CHUNKED_ABOVE)
-        elif cfg.family == "encdec":
-            memory = _run_encoder(cfg, params, batch["frame_embeds"])
-            # the cross-attention k/v are projected once; decoding reuses
-            # them.  On a mesh they take the layout the cache's (.., 1, ..)
-            # leaves had (``state_shardings``': the head width over "model")
-            for key, proj in (("cross_k", "wk"), ("cross_v", "wv")):
-                cache[key] = common.layout_of(torch.stack([
-                    common.split_heads(linear(getattr(p.cross_attn, proj), memory),
-                                       cfg.n_kv_heads) for p in params.dec_blocks]), cache[key])
-            tokens = batch["tokens"]
-            x = common.layout_of(
-                common.embed_lookup(params.embed.embedding, tokens).to(memory.dtype), tokens)
-            x, cache = _run_decoder_encdec(cfg, params, x, None, cache)
-        elif cfg.family == "hybrid":
-            x = _embed_tokens(cfg, params, batch)
-            x, cache = _run_zamba(cfg, params, x, cache, decode=False)
-        else:
-            x = _embed_tokens(cfg, params, batch)
-            x, cache = _run_xlstm(cfg, params, x, cache, decode=False)
-        return _serving_logits(cfg, params, x[:, -1:]), _stacks_written_back(cache, back)
+        with trace.span("model.prefill"):
+            cfg = self.cfg
+            cache, back = _stacks_whole(cache)
+            if cfg.family in ("dense", "moe", "vlm"):
+                x = _embed_tokens(cfg, params, batch)
+                b, s = batch["tokens"].shape
+                pos = _default_positions(cfg, b, s, batch, device=x.device)
+                x, cache, _ = _run_decoder_stack(cfg, params, x, positions=pos, cache=cache,
+                                                 use_chunked=s > CHUNKED_ABOVE)
+            elif cfg.family == "encdec":
+                memory = _run_encoder(cfg, params, batch["frame_embeds"])
+                # the cross-attention k/v are projected once; decoding reuses
+                # them.  On a mesh they take the layout the cache's (.., 1, ..)
+                # leaves had (``state_shardings``': the head width over "model")
+                for key, proj in (("cross_k", "wk"), ("cross_v", "wv")):
+                    cache[key] = common.layout_of(torch.stack([
+                        common.split_heads(linear(getattr(p.cross_attn, proj), memory),
+                                           cfg.n_kv_heads) for p in params.dec_blocks]), cache[key])
+                tokens = batch["tokens"]
+                with trace.span("model.embed"):
+                    x = common.layout_of(common.embed_lookup(params.embed.embedding, tokens)
+                                         .to(memory.dtype), tokens)
+                x, cache = _run_decoder_encdec(cfg, params, x, None, cache)
+            elif cfg.family == "hybrid":
+                x = _embed_tokens(cfg, params, batch)
+                x, cache = _run_zamba(cfg, params, x, cache, decode=False)
+            else:
+                x = _embed_tokens(cfg, params, batch)
+                x, cache = _run_xlstm(cfg, params, x, cache, decode=False)
+            return _serving_logits(cfg, params, x[:, -1:]), _stacks_written_back(cache, back)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -781,26 +805,28 @@ class Model:
                     extras: dict | None = None) -> tuple[torch.Tensor, dict]:
         """One decode step.  tokens: (B, 1) integer; ``extras`` may carry
         M-RoPE ``positions`` (B, 1, 3).  Returns (logits, cache)."""
-        cfg = self.cfg
-        cache, back = _stacks_whole(cache)
-        x = common.layout_of(common.embed_lookup(params.embed.embedding, tokens)
-                             .to(common.dtype_of(cfg.dtype)), tokens)
-        b = tokens.shape[0]
-        if cfg.family in ("dense", "moe", "vlm"):
-            length = torch.full((b, 1), cache["length"], dtype=torch.long, device=x.device)
-            if cfg.rope_variant == "mrope":
-                pos = (extras or {}).get("positions", length[..., None].expand(b, 1, 3))
+        with trace.span("model.decode_step"):
+            cfg = self.cfg
+            cache, back = _stacks_whole(cache)
+            with trace.span("model.embed"):
+                x = common.layout_of(common.embed_lookup(params.embed.embedding, tokens)
+                                     .to(common.dtype_of(cfg.dtype)), tokens)
+            b = tokens.shape[0]
+            if cfg.family in ("dense", "moe", "vlm"):
+                length = torch.full((b, 1), cache["length"], dtype=torch.long, device=x.device)
+                if cfg.rope_variant == "mrope":
+                    pos = (extras or {}).get("positions", length[..., None].expand(b, 1, 3))
+                else:
+                    pos = length
+                x, cache, _ = _run_decoder_stack(cfg, params, x, positions=pos, cache=cache,
+                                                 use_chunked=False)
+            elif cfg.family == "encdec":
+                x, cache = _run_decoder_encdec(cfg, params, x, None, cache)
+            elif cfg.family == "hybrid":
+                x, cache = _run_zamba(cfg, params, x, cache, decode=True)
             else:
-                pos = length
-            x, cache, _ = _run_decoder_stack(cfg, params, x, positions=pos, cache=cache,
-                                             use_chunked=False)
-        elif cfg.family == "encdec":
-            x, cache = _run_decoder_encdec(cfg, params, x, None, cache)
-        elif cfg.family == "hybrid":
-            x, cache = _run_zamba(cfg, params, x, cache, decode=True)
-        else:
-            x, cache = _run_xlstm(cfg, params, x, cache, decode=True)
-        return _serving_logits(cfg, params, x), _stacks_written_back(cache, back)
+                x, cache = _run_xlstm(cfg, params, x, cache, decode=True)
+            return _serving_logits(cfg, params, x), _stacks_written_back(cache, back)
 
 
 def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda") -> Model:

@@ -22,22 +22,40 @@ degraded reply come from**:
   format ``tools/tracequery.py`` consumes) and
   :meth:`Tracer.export_chrome` (Chrome ``trace_event`` JSON: load it in
   ``about://tracing`` / Perfetto for a flame view of broker ticks).
+* **The profiler bridge** — while a ``torch.profiler`` records, each
+  span also opens a ``torch.profiler.record_function`` range of its name
+  for as long as it is open (and only then: a range costs ~11 µs on a CPU
+  even with no profiler running).  The span then lies in the profiler's
+  trace on the clock of the device's rows, so device activity and idle
+  gaps can be put down to it.  The bridge looks for torch's profiler among
+  the loaded modules and never imports torch.
+* **The active tracer** — :meth:`Tracer.activate` makes a tracer the
+  current one of the context; the module-level :func:`span` opens a span
+  on it, for code that holds no handle to a tracer (the model's layer
+  functions under the serving engine's step), and :func:`annotate` sets
+  attributes on its innermost open span from deeper still (the route an
+  attention call takes, from the branch that takes it).
 
 With no tracer attached the instrumented paths never construct a span
-(the broker's helpers return the shared :data:`NULL_SPAN`), so detached
-behavior is bit-identical to the pre-observability code — asserted by
-``tests/test_observability.py``.
+(the broker's helpers return the shared :data:`NULL_SPAN`; :func:`span`
+with no active tracer reads one context variable and returns it), so
+detached behavior is bit-identical to the pre-observability code —
+asserted by ``tests/test_observability.py`` and
+``tests/test_torch_serve_trace.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import pathlib
+import sys
 import time
 from collections import deque
 from typing import Callable
 
-__all__ = ["Span", "Tracer", "NULL_SPAN"]
+__all__ = ["Span", "Tracer", "NULL_SPAN", "span", "annotate"]
 
 
 class _NullSpan:
@@ -76,6 +94,7 @@ class Span:
         "t0",
         "t1",
         "_tracer",
+        "_range",
     )
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
@@ -87,6 +106,7 @@ class Span:
         self.t0 = 0.0
         self.t1 = 0.0
         self._tracer = tracer
+        self._range = None     # the profiler range the bridge opened
 
     def __enter__(self) -> "Span":
         self._tracer._push(self)
@@ -179,6 +199,11 @@ class Tracer:
         self._next_id += 1
         span.parent_id = self._stack[-1].span_id if self._stack else None
         self._stack.append(span)
+        # the profiler bridge: torch's profiler is loaded once torch is
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is not None and prof._is_profiler_enabled:
+            span._range = prof.record_function(span.name)
+            span._range.__enter__()
         span.t0 = self.clock()
 
     def _pop(self, span: Span) -> None:
@@ -186,9 +211,22 @@ class Tracer:
         # tolerate exception-skewed exits: pop through to this span
         while self._stack:
             top = self._stack.pop()
+            if top._range is not None:
+                top._range.__exit__(None, None, None)
+                top._range = None
             if top is span:
                 break
         self._ring.append(span)
+
+    @contextlib.contextmanager
+    def activate(self):
+        """Make this the context's active tracer (:func:`span` opens its
+        spans on it) until the block ends."""
+        token = _ACTIVE.set(self)
+        try:
+            yield self
+        finally:
+            _ACTIVE.reset(token)
 
     # -- introspection ---------------------------------------------------
     def spans(self, name: str | None = None) -> list[Span]:
@@ -247,6 +285,26 @@ class Tracer:
             + "\n"
         )
         return len(events)
+
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_tracer", default=None)
+
+
+def span(name: str, **attrs):
+    """A span on the context's active tracer; :data:`NULL_SPAN` when none
+    is active (no span is built and no clock is read)."""
+    tracer = _ACTIVE.get()
+    if tracer is None:
+        return NULL_SPAN
+    return tracer.span(name, **attrs)
+
+
+def annotate(name: str, **attrs) -> None:
+    """Set ``attrs`` on the active tracer's innermost open span if that
+    span is named ``name``; nothing otherwise, or with no active tracer."""
+    tracer = _ACTIVE.get()
+    if tracer is not None and tracer._stack and tracer._stack[-1].name == name:
+        tracer._stack[-1].attrs.update(attrs)
 
 
 def _arg(v):

@@ -16,6 +16,15 @@ model's device.  ``extras`` (the frontends' ``patch_embeds`` or
 ``rng_seed`` on that device: greedy (temperature 0) tokens equal the JAX
 package's engine's for equal logits, sampled ones follow the same
 distribution but not the same numbers.
+
+Observability (both optional, pure observers, as the broker's): a
+``tracer`` (:class:`~repro_torch.obs.trace.Tracer`) is made the active one
+for each step, which is one ``engine.prefill`` or ``engine.decode`` span
+with the model's spans (``model.*``) inside it; ``metrics`` (a
+:class:`~repro_torch.obs.metrics.MetricsRegistry`) counts prompt, padded
+and generated tokens and steps by kind.  ``docs/PORT.md`` (section 6)
+lists them.  With neither attached a step builds no span and opens no
+profiler range.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import Model
+from repro_torch.obs import trace
+from repro_torch.obs.metrics import NULL_COUNTER, MetricsRegistry
 
 __all__ = ["Request", "RequestState", "ServingConfig", "ServingEngine"]
 
@@ -60,9 +71,18 @@ class ServingConfig:
     pad_id: int = 0
 
 
+def _nbytes(tree) -> int:
+    """Bytes of the tensors of a cache (nested dicts of tensors)."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    return tree.nbytes if isinstance(tree, torch.Tensor) else 0
+
+
 class ServingEngine:
     def __init__(self, model: Model, params, cfg: ServingConfig, *,
-                 extras: dict | None = None, rng_seed: int = 0):
+                 extras: dict | None = None, rng_seed: int = 0,
+                 tracer: trace.Tracer | None = None,
+                 metrics: MetricsRegistry | None = None):
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -70,10 +90,23 @@ class ServingEngine:
         self.active: dict[int, RequestState] = {}       # slot → state
         self.finished: dict[int, RequestState] = {}     # uid → state
         self._uid = 0
+        self.tracer = tracer
+        self._wave = -1               # index of the current wave
+        self._decode_index = 0        # decode steps of the current wave so far
+
+        def counter(name, **labels):
+            return NULL_COUNTER if metrics is None else metrics.counter(name, **labels)
+
+        self._c_prompt = counter("serve_prompt_tokens")
+        self._c_padded = counter("serve_padded_tokens")
+        self._c_generated = counter("serve_generated_tokens")
+        self._c_prefills = counter("serve_steps", kind="prefill")
+        self._c_decodes = counter("serve_steps", kind="decode")
 
         # one pooled cache with one scalar length: slots advance in
         # lockstep, so a wave is admitted only when the pool is empty
         self.cache = model.init_cache(cfg.max_batch, cfg.max_len)
+        self._cache_bytes = _nbytes(self.cache)
         self.device = torch.device(model.device)
         self.extras = {k: v.to(self.device) for k, v in (extras or {}).items()}
         self._gen = torch.Generator(device=self.device).manual_seed(rng_seed)
@@ -125,35 +158,67 @@ class ServingEngine:
         empty (the shared scalar cache length advances in lockstep); within
         a wave, sequences retire as they finish.
         """
+        if self.tracer is None:
+            return self._step()
+        with self.tracer.activate():
+            return self._step()
+
+    def _step(self) -> bool:
         if not self.active and self.queue:
             # ---- new wave: reset cache, admit, batch-prefill ------------
-            self.cache = self.model.init_cache(self.cfg.max_batch, self.cfg.max_len)
-            admitted = self._admit()
-            plen = max(len(st.request.prompt) for st in admitted)
-            toks = np.full((self.cfg.max_batch, plen), self.cfg.pad_id, np.int64)
-            for st in admitted:
-                # left-pad so every prompt ends at position plen-1
-                p = st.request.prompt
-                toks[st.slot, plen - len(p):] = p
-            logits, self.cache = self.model.prefill(
-                self.params, {"tokens": torch.from_numpy(toks).to(self.device), **self.extras},
-                self.cache,
-            )
-            temps = np.array([
-                self.active[s].request.temperature if self._active_mask[s] else 0.0
-                for s in range(self.cfg.max_batch)
-            ])
-            self._push_tokens(self._sample(logits, temps))
+            self._wave += 1
+            self._decode_index = 0
+            with trace.span("engine.prefill", wave=self._wave) as sp:
+                with trace.span("engine.init_cache", bytes=self._cache_bytes):
+                    self.cache = self.model.init_cache(self.cfg.max_batch, self.cfg.max_len)
+                with trace.span("engine.admit"):
+                    admitted = self._admit()
+                plen = max(len(st.request.prompt) for st in admitted)
+                prompt_tokens = sum(len(st.request.prompt) for st in admitted)
+                padded_tokens = self.cfg.max_batch * plen
+                sp.set(requests=len(admitted), prompt_tokens=prompt_tokens,
+                       padded_tokens=padded_tokens, longest=plen)
+                with trace.span("engine.pack"):
+                    toks = np.full((self.cfg.max_batch, plen), self.cfg.pad_id, np.int64)
+                    for st in admitted:
+                        # left-pad so every prompt ends at position plen-1
+                        p = st.request.prompt
+                        toks[st.slot, plen - len(p):] = p
+                    toks = torch.from_numpy(toks).to(self.device)
+                logits, self.cache = self.model.prefill(
+                    self.params, {"tokens": toks, **self.extras}, self.cache)
+                with trace.span("engine.sample"):
+                    temps = np.array([
+                        self.active[s].request.temperature if self._active_mask[s] else 0.0
+                        for s in range(self.cfg.max_batch)
+                    ])
+                    nxt = self._sample(logits, temps)
+                with trace.span("engine.push"):
+                    self._push_tokens(nxt)
+            self._c_prompt.inc(prompt_tokens)
+            self._c_padded.inc(padded_tokens)
+            self._c_generated.inc(len(admitted))
+            self._c_prefills.inc()
             return True
 
         if self.active:
             # ---- decode one token for the whole pool --------------------
-            logits, self.cache = self.model.decode_step(self.params, self._tokens, self.cache)
-            temps = np.array([
-                self.active[s].request.temperature if s in self.active else 0.0
-                for s in range(self.cfg.max_batch)
-            ])
-            self._push_tokens(self._sample(logits, temps))
+            self._decode_index += 1
+            generated = len(self.active)
+            with trace.span("engine.decode", wave=self._wave, step=self._decode_index,
+                            active=generated):
+                logits, self.cache = self.model.decode_step(self.params, self._tokens,
+                                                            self.cache)
+                with trace.span("engine.sample"):
+                    temps = np.array([
+                        self.active[s].request.temperature if s in self.active else 0.0
+                        for s in range(self.cfg.max_batch)
+                    ])
+                    nxt = self._sample(logits, temps)
+                with trace.span("engine.push"):
+                    self._push_tokens(nxt)
+            self._c_generated.inc(generated)
+            self._c_decodes.inc()
             return True
 
         return bool(self.queue)
