@@ -41,7 +41,11 @@ one JSON object per line:
                       torch.logsumexp of the plain scores in f32 and bf16,
                       on both variants, rows without a visible key at 0,
                       and the output beside it bit for bit the output
-                      without it.
+                      without it.  B6 (decode attention over a KV cache)
+                      through ``decode_attention`` against ``_decode_local``,
+                      the path it replaces, and a float64 yardstick, at the
+                      served decode step (timed for the kernels line) and
+                      at windows, 1 to 8 rows, hd 64 and position 0.
                       Then the two backward kernels against autograd of the
                       plain versions, each from the forward's L:
                       B4-bwd at zamba2-1.2b's training shape
@@ -234,10 +238,11 @@ inputs, not measured), the measured ns per absorb step of B1 and B2 at the
 solve-plane shapes (kernel time x graphs the card works on at once / absorb
 steps) and of B3, and B3's absorb steps over the per-phase path, with its
 kernel time estimated from them and the device loop's timed shapes; a
-``{"kernels": [...]}`` line gives, for all five kernels and the two
-backward kernels (B4-bwd with its variant), its launches on
+``{"kernels": [...]}`` line gives, for all five kernels, the two
+backward kernels (B4-bwd with its variant) and B6, its launches on
 its main path (B1 and B2 also on the fleet path, B4 also on the families'
-paths and at MLA's heads), its measured time, its plain version's measured
+paths and at MLA's heads, B6 on the families' decode steps), its measured
+time, its plain version's measured
 time, the time of one PyTorch call computing the same function where there
 is one,
 and its roofline bound at the main path's shape (B4 and B5 also their
@@ -428,13 +433,15 @@ REPLAY_FAMILIES = {"requests": 2, "max_batch": 2, "new_tokens": 6, "seed": 2, "a
 # every other family served at its published widths in bf16 (random weights
 # from `seed`), one model at a time: (arch, layers kept or None for all,
 # prompt lengths, B4 launches a prefill: one per attention layer of a
-# prompt over 4096 tokens, all on the tensor-core variant)
+# prompt over 4096 tokens, all on the tensor-core variant; B6 launches a
+# decode step: one per self-attention layer over a plain KV cache, none for
+# MLA's latent cache, the cross cache or a model without attention)
 SERVE_FAMILIES = {"requests": 4, "max_batch": 4, "new_tokens": 16, "seed": 0, "models": (
-    ("qwen2-7b", None, (4608, 6144), 28),
-    ("deepseek-v2-236b", 3, (4608, 6144), 3),
-    ("qwen2-vl-72b", 4, (4608, 6144), 4),
-    ("seamless-m4t-large-v2", None, (64, 256), 0),
-    ("xlstm-1.3b", None, (128, 256), 0))}
+    ("qwen2-7b", None, (4608, 6144), 28, 28),
+    ("deepseek-v2-236b", 3, (4608, 6144), 3, 0),
+    ("qwen2-vl-72b", 4, (4608, 6144), 4, 4),
+    ("seamless-m4t-large-v2", None, (64, 256), 0, 24),
+    ("xlstm-1.3b", None, (128, 256), 0, 0))}
 # the per-phase tier: B3 against its plain version on single phases at
 # phase_n (all vertices alive, and with holes after random merges), then
 # mcop_min_cut on `graphs` random graphs of sizes log-uniform over `sizes`
@@ -2070,6 +2077,125 @@ def check_gqa_uneven(rng) -> dict:
             "tol_meaning": "max |kernel - plain| / max |plain|, each of out, dq, dk, dv"}
 
 
+# B6 (decode_attention_kernel) through models.attention.decode_attention,
+# held to _decode_local (the path it replaces) on the same inputs:
+# (B, H, Hkv, slots, position of the first query, Sq, hd, window, dtype).
+# First the served cell's decode step (qwen2-7b: a wave of 8, 28 / 4 heads
+# of 128, a cache of 8 201 slots, the query at position 8 192), timed for
+# the kernels line; then a prompt of 2 into the cache (6 rows), a window
+# over 1:1 heads of 64 (1 row), 8 rows at the last slot, 8 rows at position
+# 0 (one slot seen), 7 rows at hd 64 with a window, 4 rows, and lengths that
+# are no multiple of a tile.  k and v are one layer's views of a stacked
+# (L, B, S, Hkv, hd) cache, as the model reads them.
+DECODE_CHECKS = (
+    (8, 28, 4, 8201, 8192, 1, 128, None, "bfloat16"),
+    (2, 12, 4, 4200, 4097, 2, 128, None, "bfloat16"),
+    (2, 8, 8, 1000, 700, 1, 64, 300, "bfloat16"),
+    (3, 16, 2, 517, 516, 1, 128, None, "bfloat16"),
+    (1, 8, 1, 333, 0, 1, 128, None, "bfloat16"),
+    (1, 7, 1, 6001, 5000, 1, 64, 4096, "bfloat16"),
+    (2, 8, 2, 300, 299, 1, 128, None, "bfloat16"),
+)
+# atol; both sides round an f32 result to bf16, so they may differ by one
+# step of it (eps |o|, eps = 2^-7), and each lies within half a step of the
+# float64 value (eps / 2 |o|) plus what f32 sums in another order leave
+# (under 1e-6 at unit-normal inputs)
+DECODE_ATOL = 1e-5
+DECODE_TIME_LAYERS = 4   # distinct caches the timed calls cycle over (537 MB: L2 stays cold)
+
+
+def decode_f64(q, k, v, q_pos, *, scale, window):
+    """The function of B6 in float64 (the yardstick of both sides)."""
+    b, sq, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    scores = torch.einsum("bqkgd,bskd->bkgqs", q.reshape(b, sq, hkv, h // hkv, hd).double(),
+                          k.double()) * scale
+    j = torch.arange(s, device=q.device)
+    seen = j[None, :] <= q_pos[:, None]
+    if window is not None:
+        seen &= j[None, :] > q_pos[:, None] - window
+    p = torch.softmax(scores.masked_fill(~seen, float("-inf")), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.double())
+    return out.reshape(b, sq, h, hd)
+
+
+def check_decode_attention(rng, case, *, measure: bool) -> dict:
+    from repro_torch.kernels import decode_attention as b6
+    from repro_torch.models import attention as attn
+
+    b, h, hkv, slots, pos, sq, hd, window, dtype = case
+    dt = getattr(torch, dtype)
+    eps = torch.finfo(dt).eps
+    layers = DECODE_TIME_LAYERS if measure else 1
+    gen = torch.Generator(device=DEVICE).manual_seed(int(rng.integers(2**31)))
+    kc, vc = (torch.randn((layers, b, slots, hkv, hd), generator=gen, device=DEVICE).to(dt)
+              for _ in range(2))
+    q = torch.randn((b, sq, h, hd), generator=gen, device=DEVICE).to(dt)
+    q_pos = pos + torch.arange(sq, device=DEVICE)
+    scale = 1.0 / np.sqrt(hd)
+    kw = {"q_pos": q_pos, "scale": scale, "k_pos": attn._slot_positions, "window": window}
+    before = b6.LAUNCHES["decode_attention_kernel"]
+    got = attn.decode_attention([q], [kc[0]], vc[0], **kw)
+    torch.cuda.synchronize()
+    if b6.LAUNCHES["decode_attention_kernel"] - before != 1:
+        raise AssertionError(f"decode {case}: decode_attention did not take B6")
+
+    def local(j=0):
+        return attn._decode_local([q], [kc[j]], vc[j], None, j0=0, score_groups=(),
+                                  slot_groups=(), **kw)
+
+    want, local_ms = timed(local)
+    ref = decode_f64(q, kc[0], vc[0], q_pos, scale=scale, window=window)
+    err = (got.float() - want.float()).abs()
+    worst = float((err / (DECODE_ATOL + eps * want.float().abs())).max())
+    err64 = (got.double() - ref).abs()
+    worst64 = float((err64 / (DECODE_ATOL + eps / 2 * ref.abs())).max())
+    local64 = float(((want.double() - ref).abs() / (DECODE_ATOL + eps / 2 * ref.abs())).max())
+    if worst > 1.0 or worst64 > 1.0:
+        raise AssertionError(f"decode {case}: kernel vs _decode_local {worst}, vs float64 "
+                             f"{worst64} x the tolerance")
+    entry = {"name": "decode_attention_kernel", "shape": [b, h, hkv, slots, sq, hd],
+             "position": pos, "window": window, "dtype": dtype,
+             "max_abs_err": float(err.max()), "max_err_over_tol": worst,
+             "equal_share": float((got == want).float().mean()),
+             "f64_err_over_half_step": worst64, "decode_local_f64_err_over_half_step": local64,
+             "atol": DECODE_ATOL, "rtol": eps,
+             "tol_meaning": "|kernel - _decode_local| <= atol + eps |_decode_local|; "
+                            "|kernel - f64| <= atol + eps / 2 |f64|"}
+    del err, err64, ref
+    if measure:
+        hi = min(slots, pos + sq)
+        lo = max(0, pos - window + 1) if window is not None else 0
+        seen = hi - lo
+        nbytes = (2 * b * hkv * seen * hd + 2 * b * sq * h * hd) * q.element_size()
+        flops = 4.0 * hd * b * h * sq * seen
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_PER_S)
+        turn = [0]
+
+        def layer() -> int:   # each call a layer of its own, as the model's step reads them
+            turn[0] += 1
+            return turn[0] % layers
+
+        def call():
+            j = layer()
+            return b6.decode_attention_kernel(q, kc[j], vc[j], q_pos, scale=scale, window=window)
+
+        ms = graph_ms(call, reps=8 * layers)
+        _, plain_ms = timed(lambda: b6.decode_attention_plain(q, kc[0], vc[0], q_pos,
+                                                              scale=scale, window=window))
+        entry.update({
+            "ms": ms, "call_ms": cuda_ms(call, reps=8 * layers),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+            "gbytes_per_s": nbytes / ms / 1e6, "slots_read": seen,
+            "splits": b6.decode_splits(b * hkv, slots, b6._resident(q.device, hd,
+                                                                    h // hkv * sq)),
+            "plain_ms": plain_ms, "decode_local_ms": local_ms,
+            "decode_local_call_ms": cuda_ms(lambda: local(layer()), reps=2 * layers),
+            "library_ms": None,
+        })
+    return entry
+
+
 def phase_model_kernel_checks(rng) -> dict:
     """B4 and B5 against their plain versions; the first shape of each is
     the hybrid model's prefill and is also timed for the kernels line, and
@@ -2088,8 +2214,10 @@ def phase_model_kernel_checks(rng) -> dict:
     torch.cuda.empty_cache()
     gqa = [check_gqa_uneven(rng)]
     torch.cuda.empty_cache()
+    decode = [check_decode_attention(rng, c, measure=i == 0) for i, c in enumerate(DECODE_CHECKS)]
+    torch.cuda.empty_cache()
     return {"phase": "model_kernel_checks",
-            "entries": flash + mla + lse + mamba + flash_bwd + mamba_bwd + gqa}
+            "entries": flash + mla + lse + mamba + flash_bwd + mamba_bwd + gqa + decode}
 
 
 # ----------------------------------------------------------------------
@@ -2335,6 +2463,7 @@ def phase_serve_families() -> dict:
     import gc
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as b6
     from repro_torch.kernels.flash_attention import VARIANT_LAUNCHES
     from repro_torch.models import common
     from repro_torch.models.transformer import build_model
@@ -2343,7 +2472,7 @@ def phase_serve_families() -> dict:
     spec = SERVE_FAMILIES
     mb, new, seed = spec["max_batch"], spec["new_tokens"], spec["seed"]
     lines = []
-    for arch, layers, (lo, hi), b4 in spec["models"]:
+    for arch, layers, (lo, hi), b4, b6_step in spec["models"]:
         full = get_config(arch)
         cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
         t0 = time.perf_counter()
@@ -2359,14 +2488,20 @@ def phase_serve_families() -> dict:
         submit_requests(engine, {**spec, "prompt": (lo, hi)}, cfg.vocab_size)
         torch.cuda.reset_peak_memory_stats()
         reset_all_launches()  # ---- this model's path starts here ----
+        b6.reset_launches()
         waves = drive_engine(engine, torch.cuda.synchronize)
         launches = all_launches()  # ---- and ends here ----
+        b6_launches = b6.LAUNCHES["decode_attention_kernel"]
         variants = dict(VARIANT_LAUNCHES)
         want = {name: 0 for name in launches}
         want["flash_attention_kernel"] = b4 * len(waves)
         if launches != want or variants != {"tensor_cores": b4 * len(waves), "cuda_cores": 0}:
             raise AssertionError(f"serve_families {arch}: launches {launches}, B4 variants "
                                  f"{variants}; expected B4 {b4} a prefill on the tensor cores")
+        steps = sum(w["decode_steps"] for w in waves)
+        if b6_launches != b6_step * steps:
+            raise AssertionError(f"serve_families {arch}: B6 launched {b6_launches} times over "
+                                 f"{steps} decode steps; expected {b6_step} a step")
         done = engine.finished
         if len(done) != spec["requests"] or any(len(s_.generated) != new for s_ in done.values()):
             raise AssertionError(f"serve_families {arch}: not every request got its tokens")
@@ -2383,14 +2518,16 @@ def phase_serve_families() -> dict:
                 "decode_tokens_per_s": sum(w["decode_tokens"] for w in waves) / dec_s,
                 "flash_launches": launches["flash_attention_kernel"],
                 "flash_launches_per_prefill": launches["flash_attention_kernel"] / len(waves),
-                "flash_variant_launches": variants}
+                "flash_variant_launches": variants,
+                "decode_attention_launches": b6_launches, "decode_steps": steps}
         emit(line)
         lines.append({k: v for k, v in line.items() if k not in ("phase", "waves")})
         del engine, model, params, extras
         gc.collect()
         torch.cuda.empty_cache()
     return {"phase": "serve_families", "models": lines,
-            "flash_launches": sum(m["flash_launches"] for m in lines)}
+            "flash_launches": sum(m["flash_launches"] for m in lines),
+            "decode_attention_launches": sum(m["decode_attention_launches"] for m in lines)}
 
 
 # ----------------------------------------------------------------------
@@ -4551,6 +4688,21 @@ def main() -> int:
             **({"bound_f32_ms": timed_entry["bound_f32_ms"]} if "bound_f32_ms" in timed_entry
                else {}),
         })
+    timed_entry = next(e for e in model_checks["entries"]
+                       if e["name"] == "decode_attention_kernel" and "ms" in e)
+    kernels["kernels"].append({
+        "name": "decode_attention_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        # no TPU kernel: the JAX package's jnp decode at this line
+        "replaces": "src/repro/models/attention.py:72", "tpu_kernel": None,
+        "launches": families["decode_attention_launches"],
+        "launches_by_model": {m["arch"]: m["decode_attention_launches"]
+                              for m in families["models"]},
+        **{k: timed_entry[k] for k in (
+            "max_abs_err", "ms", "call_ms", "plain_ms", "decode_local_ms",
+            "decode_local_call_ms", "bound_ms", "bound_by", "bound_share", "library_ms",
+            "shape", "splits")},
+    })
     line = next(t for t in min_cut["timing"] if t["n"] == MIN_CUT["line_n"])
     kernels["kernels"].append({
         "name": "mcop_phase_kernel", "route": "cuda",

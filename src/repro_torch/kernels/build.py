@@ -53,7 +53,7 @@ NVCC_FLAGS = (
 )
 
 KERNEL_SOURCES = ("mcop_sw", "mcop_fused", "mcop_phase", "flash_attention", "mamba_scan",
-                  "flash_attention_bwd", "mamba_scan_bwd")
+                  "flash_attention_bwd", "mamba_scan_bwd", "decode_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

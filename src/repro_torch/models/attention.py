@@ -34,7 +34,9 @@ einsum over the cache as it is stored (the JAX package's sequence-sharded
 decode layout, which it takes when ``set_decode_flash_partitioning(True)``),
 never repeating K/V to the query heads as ``naive_attention`` would, with
 float32 products throughout: the same function as the reference's naive
-attention over the cache.  MLA's absorbed form is the same call with one
+attention over the cache.  On the card a plain KV cache is read by B6
+(``kernels.decode_attention``), the same function in one kernel that reads
+the cache once in its own dtype.  MLA's absorbed form is the same call with one
 kv head, the latents: keys ``c_kv | k_rope``, values ``c_kv``.
 
 **On a mesh** (DTensor parameters and a cache placed by
@@ -58,7 +60,8 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, traced
+from repro_torch.kernels.decode_attention import decode_attention_kernel, takes as b6_takes
 from repro_torch.models import common
 from repro_torch.models.common import linear, rmsnorm
 from repro_torch.obs import trace
@@ -214,14 +217,36 @@ def decode_attention(
     under an online softmax.
 
     DTensors run it on each rank's shard of the cache
-    (:func:`_decode_attention_sharded`): the cache never moves."""
-    trace.annotate("model.attention", route="decode")
+    (:func:`_decode_attention_sharded`): the cache never moves.  A plain KV
+    cache on the card takes B6 (:func:`_takes_b6`), which reads it once in
+    its own dtype; every other call :func:`_decode_local`."""
     v_key = next((i for i, k in enumerate(ks) if k is v), None)
+    if _takes_b6(qs, ks, v, v_key, k_pos, window):
+        trace.annotate("model.attention", route="b6")
+        return decode_attention_kernel(qs[0], ks[0], v, q_pos, scale=scale, window=window)
+    trace.annotate("model.attention", route="decode")
     if isinstance(v, DTensor):
         return _decode_attention_sharded(qs, ks, v, v_key, q_pos=q_pos, scale=scale,
                                          k_pos=k_pos, window=window)
     return _decode_local(qs, ks, v, v_key, j0=0, q_pos=q_pos, scale=scale, k_pos=k_pos,
                          window=window, score_groups=(), slot_groups=())
+
+
+def _takes_b6(qs, ks, v, v_key, k_pos, window) -> bool:
+    """:func:`decode_attention` takes B6 (``kernels.decode_attention``):
+    one key part, not the value, over a plain KV cache (``k_pos`` is
+    :func:`_slot_positions`), on CUDA tensors that are neither DTensors nor
+    the dry run's fakes, of the dtypes, widths, rows and window B6 takes
+    (``kernels.decode_attention.takes``).  Reads only types, devices,
+    dtypes and shapes: the ring, the cross cache, MLA's latents, a mesh and
+    the CPU keep :func:`_decode_local`."""
+    if len(ks) != 1 or v_key is not None or k_pos is not _slot_positions:
+        return False
+    q, k = qs[0], ks[0]
+    if any(isinstance(t, DTensor) or traced.is_fake(t) or t.device.type != "cuda"
+           for t in (q, k, v)):
+        return False
+    return b6_takes(q, k, v, window)
 
 
 def _decode_local(qs, ks, v, v_key, *, j0: int, q_pos, scale, k_pos, window, score_groups,

@@ -9,6 +9,8 @@
     python3 tools/torch_kernel_probe.py flash-bwd-variants  # B4-bwd by variant and warpgroups
     python3 tools/torch_kernel_probe.py mamba-passes    # B5's four passes, device time each
     python3 tools/torch_kernel_probe.py mcop-variants   # B1's warp body, by design knob
+    python3 tools/torch_kernel_probe.py decode-splits   # B6 at the served decode step, by splits
+    python3 tools/torch_kernel_probe.py decode-variants # B6 there, by design knob
 
 ``wgmma-layout`` runs ``tools/torch_wgmma_probe.cu``: for no-swizzle K-major
 and MN-major operands, which (LBO, SBO) assignment gives the right product.
@@ -42,6 +44,19 @@ K = 1024 of 256) in the order A, B, C, C, B, A; then it runs
 ``tools/torch_latency_probe.cu``: SM cycles per dependent redux.sync (max,
 min), shuffle, ballot, shared-memory load and integer multiply-add on a
 warp alone on its SM, the links an absorb step chains together.
+``decode-splits`` times B6 (``kernels/decode_attention.py``) at the served
+decode step (bf16, a wave of 8, 28 / 4 heads of 128, 8 201 slots, the query
+at position 8 192) with the split count the wrapper chooses replaced by each
+of ``DECODE_SPLITS`` in turn, in the order A, B, ..., ..., B, A, each in a
+CUDA graph over four layers' caches (L2 cold, no host time), each result
+against ``_decode_local``'s.
+``decode-variants`` builds ``csrc/decode_attention.cu`` as it is and with one
+knob changed by a text edit (the score step's products left out, the P V
+products left out, the tile loads left out, three ring stages, three
+stages and 24 tiles a block at two blocks an SM), each in a process of its
+own on a copy of ``src/`` (libraries built apart, one CUDA runtime a
+process), and times each as ``decode-splits`` does; variants that change the arithmetic are timings
+only, their error against the as-built kernel is printed.
 Everything is built into ``build/repro_torch/probe/`` with ``nvcc``.
 """
 
@@ -447,11 +462,146 @@ def mcop_variants() -> dict:
     return {"probe": "mcop-variants", "rows": rows, "cycles_per_dependent_op": latency}
 
 
+DECODE_SPLITS = (9, 10, 12, 14, 16, 24, 32)  # blocks a (batch, kv head) pair: 32 pairs, 9 at least
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds a call of ``fn``: ``reps`` calls in one CUDA graph."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def decode_splits() -> dict:
+    from repro_torch.kernels import decode_attention as b6
+    from repro_torch.models.attention import _decode_local, _slot_positions
+
+    b, h, hkv, s, pos, hd, layers = 8, 28, 4, 8201, 8192, 128, 4
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kc, vc = (torch.randn((layers, b, s, hkv, hd), generator=gen, device="cuda").bfloat16()
+              for _ in range(2))
+    q = torch.randn((b, 1, h, hd), generator=gen, device="cuda").bfloat16()
+    qp = torch.tensor([pos], device="cuda")
+    scale = hd ** -0.5
+    want = _decode_local([q], [kc[0]], vc[0], None, j0=0, q_pos=qp, scale=scale,
+                         k_pos=_slot_positions, window=None, score_groups=(),
+                         slot_groups=()).float()
+    auto = b6.decode_splits(b * hkv, s, b6._resident(q.device, hd, h // hkv))
+    nbytes = (2 * b * hkv * (pos + 1) * hd + 2 * b * h * hd) * 2
+    chosen, turn, times, errs = b6.decode_splits, [0], {}, {}
+
+    def call():
+        turn[0] += 1
+        j = turn[0] % layers
+        return b6.decode_attention_kernel(q, kc[j], vc[j], qp, scale=scale)
+
+    try:
+        for n in DECODE_SPLITS + DECODE_SPLITS[::-1]:
+            b6.decode_splits = lambda *_, n=n: n
+            got = b6.decode_attention_kernel(q, kc[0], vc[0], qp, scale=scale).float()
+            errs[n] = float((got - want).abs().max())
+            times.setdefault(n, []).append(graph_ms(call, 8 * layers))
+    finally:
+        b6.decode_splits = chosen
+    return {"probe": "decode-splits", "auto_splits": auto,
+            "bound_ms": nbytes / 3.35e12 * 1e3,
+            "rows": [{"splits": n, "ms": times[n], "max_abs_err": errs[n]}
+                     for n in DECODE_SPLITS]}
+
+
+DECODE_VARIANTS = {
+    "as built": [],
+    "no score products": [("for (int d = 0; d < 8; ++d) a = __fmaf_rn(qf[d], kf[i][d], a);", ";")],
+    "no P V products": [
+        ("for (int d = 0; d < 8; ++d) o[r][d] = __fmaf_rn(pv[i], vf[i][d], o[r][d]);", ";")],
+    "no tile loads": [
+        ("if (s < units) load_unit(s, s);", ""),
+        ("if (u + kStages - 1 < units) load_unit(u + kStages - 1, (u + kStages - 1) % kStages);",
+         "")],
+    "3 stages": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+    "3 stages, 24 tiles a block (2 blocks an SM)": [
+        ("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
+        ("constexpr int kMaxTiles = 16;", "constexpr int kMaxTiles = 24;"),
+        ("__launch_bounds__(kThreads, 3)\ndecode_attention_kernel(",
+         "__launch_bounds__(kThreads)\ndecode_attention_kernel(")],
+}
+
+
+DECODE_CHILD = """
+import json, sys, torch
+from repro_torch.kernels import decode_attention as b6
+b, h, hkv, s, pos, hd, layers = 8, 28, 4, 8201, 8192, 128, 4
+gen = torch.Generator(device="cuda").manual_seed(0)
+kc, vc = (torch.randn((layers, b, s, hkv, hd), generator=gen, device="cuda").bfloat16()
+          for _ in range(2))
+q = torch.randn((b, 1, h, hd), generator=gen, device="cuda").bfloat16()
+qp = torch.tensor([pos], device="cuda")
+torch.save(b6.decode_attention_kernel(q, kc[0], vc[0], qp, scale=hd ** -0.5).cpu(), sys.argv[1])
+turn = [0]
+def call():
+    turn[0] += 1
+    j = turn[0] % layers
+    return b6.decode_attention_kernel(q, kc[j], vc[j], qp, scale=hd ** -0.5)
+sys.path.insert(0, sys.argv[2])
+from torch_kernel_probe import graph_ms
+print(json.dumps({"ms": [graph_ms(call, 8 * layers) for _ in range(3)],
+                  "splits": b6.decode_splits(b * hkv, s, b6._resident(q.device, hd, h // hkv))}))
+"""
+
+
+def decode_variants() -> dict:
+    """Each variant in a process of its own, on a copy of ``src/`` with the
+    edit applied, through the wrapper (its build included)."""
+    import shutil
+
+    src_tree = os.path.join(ROOT, "src")
+    rows, outs = [], []
+    for i, (name, edits) in enumerate(DECODE_VARIANTS.items()):
+        tree = os.path.join(OUT, f"decode_variant_{i}")
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(src_tree, os.path.join(tree, "src"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        path = os.path.join(tree, "src", "repro_torch", "kernels", "csrc", "decode_attention.cu")
+        text = open(path).read()
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
+            text = text.replace(old, new)
+        with open(path, "w") as f:
+            f.write(text)
+        out = os.path.join(tree, "out.pt")
+        proc = subprocess.run([sys.executable, "-c", DECODE_CHILD, out,
+                               os.path.dirname(os.path.abspath(__file__))],
+                              capture_output=True, text=True,
+                              env={**os.environ, "PYTHONPATH": os.path.join(tree, "src")})
+        if proc.returncode:
+            rows.append({"variant": name, "error": proc.stderr[-2000:]})
+            continue
+        rows.append({"variant": name, **json.loads(proc.stdout.strip().splitlines()[-1])})
+        outs.append((len(rows) - 1, torch.load(out)))
+    want = outs[0][1].float() if outs and outs[0][0] == 0 else None
+    for i, got in outs:
+        if want is not None:
+            rows[i]["max_abs_diff"] = float((got.float() - want).abs().max())
+    return {"probe": "decode-variants", "rows": rows}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("probes", nargs="+", choices=(
         "wgmma-layout", "flash-variants", "flash-mla-variants", "flash-bwd-variants",
-        "mamba-passes", "mcop-variants"))
+        "mamba-passes", "mcop-variants", "decode-splits", "decode-variants"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
@@ -461,7 +611,8 @@ def main() -> int:
     run = {"wgmma-layout": wgmma_layout, "flash-variants": flash_variants,
            "flash-mla-variants": lambda: flash_variants("flash-mla-variants"),
            "flash-bwd-variants": flash_bwd_variants,
-           "mamba-passes": mamba_passes, "mcop-variants": mcop_variants}
+           "mamba-passes": mamba_passes, "mcop-variants": mcop_variants,
+           "decode-splits": decode_splits, "decode-variants": decode_variants}
     for name in args.probes:
         print(json.dumps(run[name]()), flush=True)
     return 0
